@@ -1,20 +1,31 @@
-"""Drive the PyTorch port's sampling path once on one NVIDIA GPU.
+"""Drive the PyTorch port's sampling and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit. It
 
-1. builds the port's CUDA kernels from `upgpt_torch/csrc` (nvcc, sm_90a);
+1. builds the port's CUDA kernels from `upgpt_torch/csrc` (one nvcc per
+   source, in parallel, sm_90a);
 2. holds each kernel against its plain PyTorch version in bf16 at the
-   shapes the sampling path below gives it (batch 8), and times both;
-3. builds interp_256 at full width in bf16 with every parameter re-drawn
-   from a seeded generator (std 1/sqrt(fan_in), nothing left at zero),
-   checks the kernel path against the plain path end to end (one U-Net
-   eval, and a 4-step eta-0 sample plus decode at batch 2), then runs
+   shapes the two paths below give it (sampling at batch 8, training at
+   batch 12), and times the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call (`library_ms`, a
+   yardstick the port never calls);
+3. sampling: builds interp_256 at full width in bf16 with every parameter
+   re-drawn from a seeded generator (std 1/sqrt(fan_in), nothing left at
+   zero), checks the kernel path against the plain path end to end (one
+   U-Net eval, and a 4-step eta-0 sample plus decode at batch 2), then runs
    DDIM-50 with eta 1 at batch 8 to uint8 images: one warm-up and three
    timed runs, counting kernel launches in each;
-4. prints a JSON line of per-kernel results, the card's name and power
+4. training: builds interp_256 with float32 master parameters under bf16
+   compute and the training kernels on (flash attention, fused transformer,
+   fused GroupNorm), checks one AdamW step of the kernel path against the
+   plain path (all three switches off) on the same weights, batch and
+   draws at batch 2, then runs the train step at batch 12: one warm-up and
+   five timed steps, counting kernel launches per step against the counts
+   the model's structure gives;
+5. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -29,21 +40,43 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 # Kernel vs plain, bf16, at the path's shapes: max|kernel - plain| must stay
 # under this share of max|plain|. Both sides round the same intermediates to
 # bf16 (3 significant digits) but accumulate in different orders, so single
 # elements differ by a few bf16 steps: 2e-2 leaves room for ~5 of them.
 KERNEL_REL_TOL = 2e-2
-# End to end, kernel path vs plain path on the same weights: relative L2 of
-# the U-Net output, of the latents after 4 eta-0 DDIM steps, and of the
-# image those latents decode to. Each path rounds to bf16 ~100 times per
-# eval; measured on an H100 (700 W): 1.6e-2 (U-Net output), 5.5e-3
-# (latents) and 1.2e-2 (image), so each bound has a margin of 3x or more.
+# Sampling end to end, kernel path vs plain path on the same weights:
+# relative L2 of the U-Net output, of the latents after 4 eta-0 DDIM steps,
+# and of the image those latents decode to. Each path rounds to bf16 ~100
+# times per eval; measured on an H100 (700 W): 1.6e-2 (U-Net output),
+# 5.5e-3 (latents) and 1.2e-2 (image), so each bound has a margin of 3x or
+# more.
 EPS_REL_L2 = 5e-2
 LATENT_REL_L2 = 5e-2
 IMAGE_REL_L2 = 5e-2
+# Training end to end, one AdamW step at batch 2, kernel path vs plain path
+# on the same float32 masters, batch and draws: |loss difference| / loss,
+# relative L2 of the global gradient, of the parameters after the step and
+# of the step's update (parameters after minus before). Both paths compute
+# in bf16 but round at different places (the kernels keep float32 inside a
+# sub-block where the plain path rounds), and the backward carries those
+# differences through the whole U-Net to all 688 leaves. The update is
+# Adam's first step, about lr * sign(gradient), so it differs wherever a
+# gradient entry is smaller than that noise. Measured on an H100 (700 W):
+# 1.12e-4 (loss), 1.05e-2 (gradient), 1.17e-5 (parameters) and 0.155
+# (update), so each bound has a margin of 3x or more.
+TRAIN_LOSS_REL = 5e-4
+TRAIN_GRAD_REL_L2 = 5e-2
+TRAIN_PARAM_REL_L2 = 5e-5
+TRAIN_UPDATE_REL_L2 = 0.5
 BATCH, STEPS, TIMED_RUNS = 8, 50, 3
+TRAIN_BATCH, TRAIN_STEPS, LEARNING_RATE = 12, 5, 2e-6
+CONTEXT_TOKENS = 87  # 77 text + 9 style + 1 pose
+# NVIDIA H100 SXM peaks (data sheet, dense): bf16 tensor cores, float32
+# outside them, device memory
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def _card_line() -> str:
@@ -94,50 +127,151 @@ def _random_block(c: int, ctx_dim: int, g: torch.Generator) -> dict:
     }
 
 
-def _compare(name, shape, kernel, plain):
-    got = kernel().float()
+def _bound(flops: float, nbytes: float, peak: float):
+    """The least time the card could take: (ms, what bounds it)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _compare(name, shape, path, kernel, plain, work, library=None):
+    """Kernel against plain on the same inputs; both timed, and `library`
+    (one PyTorch call computing the same function) where there is one.
+    `work` is (flops, bytes, peak) for the bound."""
+    got = kernel()
     torch.cuda.synchronize()
-    want = plain().float()
-    if not torch.isfinite(got).all():
-        raise RuntimeError(f"{name} {shape}: non-finite kernel output")
-    err = (got - want).abs().max().item()
-    rel = err / want.abs().max().item()
+    want = plain()
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    err = rel = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"{name} {shape}: non-finite kernel output")
+        e = (a - b).abs().max().item()
+        err, rel = max(err, e), max(rel, e / b.abs().max().item())
     ms, plain_ms = _time_ms(kernel), _time_ms(plain)
-    print(f"{name} {shape}: max|d|/max|ref| {rel:.3e} (max|d| {err:.3e}), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    library_ms = None if library is None else _time_ms(library)
+    bound_ms, bound_by = _bound(*work)
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    print(f"{name} {shape} [{path}]: max|d|/max|ref| {rel:.3e} (max|d| "
+          f"{err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     if rel > KERNEL_REL_TOL:
         raise RuntimeError(f"{name} {shape}: kernel disagrees with plain "
                            f"({rel:.3e} > {KERNEL_REL_TOL})")
-    return {"shape": list(shape), "max_abs_err": err, "rel_err": rel,
-            "ms": ms, "plain_ms": plain_ms}
+    return {"shape": list(shape), "path": path, "max_abs_err": err,
+            "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _block_work(b, t, c, tk, ctx_dim=None):
+    """K1's flops and bytes: eight products over M = B*T rows (40 M C^2),
+    self- and cross-attention (4 B T^2 C and 4 B T Tk C), and with a
+    context its K/V projection (4 B Tk Cd C); bytes: tokens in and out,
+    20 C^2 weights and 21 C vectors, and the K/V or the context and
+    to_k/to_v, all bf16."""
+    flops = 40 * b * t * c * c + 4 * b * t * t * c + 4 * b * t * tk * c
+    nbytes = 2 * (2 * b * t * c + 20 * c * c + 21 * c)
+    if ctx_dim is None:
+        nbytes += 2 * 2 * b * tk * c
+    else:
+        flops += 4 * b * tk * ctx_dim * c
+        nbytes += 2 * (b * tk * ctx_dim + 2 * c * ctx_dim)
+    return flops, nbytes, PEAK_BF16
 
 
 def kernel_checks(dev) -> dict:
     from upgpt_torch.ops import flash_attention as fa
+    from upgpt_torch.ops import fused_gn as fg
     from upgpt_torch.ops import fused_transformer as ft
 
     g = torch.Generator(device=dev).manual_seed(0)
-    cases = {"fused_transformer_block": [], "flash_attention": []}
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    cases = {k: [] for k in ("fused_transformer_block", "flash_attention",
+                             "flash_backward_dq", "flash_backward_dkv",
+                             "fused_group_norm")}
     with torch.no_grad():
-        # ds1 and ds2 at the main path's batch
-        for b, t, c in [(BATCH, 768, 224), (BATCH, 192, 448)]:
+        # K1, ds1 and ds2: precomputed K/V at the sampling batch, the
+        # context projected in-kernel at the training batch
+        for b, t, c, variant in [(BATCH, 768, 224, "kv"),
+                                 (BATCH, 192, 448, "kv"),
+                                 (TRAIN_BATCH, 768, 224, "ctx"),
+                                 (TRAIN_BATCH, 192, 448, "ctx")]:
             p = _random_block(c, 768, g)
-            x = torch.randn(b, t, c, generator=g, device=dev).bfloat16()
-            k = torch.randn(b, 87, c, generator=g, device=dev).bfloat16()
-            v = torch.randn(b, 87, c, generator=g, device=dev).bfloat16()
+            x = randn(b, t, c).bfloat16()
+            tk = CONTEXT_TOKENS
+            if variant == "kv":
+                kv = (randn(b, tk, c).bfloat16(), randn(b, tk, c).bfloat16())
+                kw, work = {"kv": kv}, _block_work(b, t, c, tk)
+            else:
+                kw = {"context": randn(b, tk, 768).bfloat16()}
+                work = _block_work(b, t, c, tk, 768)
             cases["fused_transformer_block"].append(_compare(
-                "fused_transformer_block", (b, t, c, 8, 87),
-                lambda: ft.fused_transformer_block(x, p, 8, kv=(k, v)),
-                lambda: ft.transformer_block_reference(x, p, 8, kv=(k, v))))
-        # the VAE mid AttnBlock at the main path's batch, then a 512px-slice
-        # shape (K3's regime, not on this path)
-        for shape in [(BATCH, 1, 768, 512), (2, 8, 3072, 64)]:
-            q, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16()
-                       for _ in range(3))
+                f"fused_transformer_block[{variant}]", (b, t, c, 8, tk),
+                "sampling" if variant == "kv" else "training",
+                lambda: ft.fused_transformer_block(x, p, 8, **kw),
+                lambda: ft.transformer_block_reference(x, p, 8, **kw), work))
+        # flash forward: the VAE mid AttnBlock (decoder at the sampling
+        # batch, encoder at the training batch), the ds1 self-attention the
+        # training backward recomputes, and a 512px-slice shape (no path)
+        for shape, path in [((BATCH, 1, 768, 512), "sampling"),
+                            ((TRAIN_BATCH, 1, 768, 512), "training"),
+                            ((TRAIN_BATCH, 8, 768, 28), "training"),
+                            ((2, 8, 3072, 64), "none")]:
+            q, k, v = (randn(shape).bfloat16() for _ in range(3))
+            bh, t, d = shape[0] * shape[1], shape[2], shape[3]
             cases["flash_attention"].append(_compare(
-                "flash_attention", shape,
+                "flash_attention", shape, path,
                 lambda: fa.flash_attention(q, k, v),
-                lambda: fa._reference_attention(q, k, v)))
+                lambda: fa._reference_attention(q, k, v),
+                (4 * bh * t * t * d, 2 * 4 * bh * t * d, PEAK_BF16),
+                lambda: F.scaled_dot_product_attention(q, k, v)))
+        # K5 at the training batch: the narrowest, widest and deepest
+        # ResBlock inputs, and the out head
+        for shape in [(TRAIN_BATCH, 32, 24, 224), (TRAIN_BATCH, 32, 24, 672),
+                      (TRAIN_BATCH, 4, 3, 1792), (TRAIN_BATCH, 16, 12, 448)]:
+            x = (2 * randn(shape) + 0.5).bfloat16()
+            scale = 1 + 0.1 * randn(shape[-1])
+            bias = 0.1 * randn(shape[-1])
+            n = x.numel()
+            # torch's GroupNorm takes its affine parameters in x's dtype
+            lib_scale, lib_bias = scale.bfloat16(), bias.bfloat16()
+            cases["fused_group_norm"].append(_compare(
+                "fused_group_norm", shape, "training",
+                lambda: fg.fused_group_norm(x, scale, bias, 32, 1e-5, True),
+                lambda: fg._reference_gn(x, scale, bias, 32, 1e-5, True),
+                # 3 for the sums, 4 for the affine normalise, 3 for SiLU
+                (10 * n, 2 * 2 * n + 2 * 4 * shape[-1], PEAK_F32),
+                lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32,
+                                            lib_scale, lib_bias, 1e-5))))
+    # K4 at the ds1 recompute of the training path
+    shape = (TRAIN_BATCH, 8, 768, 28)
+    bh, t, d = shape[0] * shape[1], shape[2], shape[3]
+    q, k, v, do = (randn(shape).bfloat16() for _ in range(4))
+    o = fa._reference_attention(q, k, v)
+    _, lse, di = fa._reference_backward_dq(q, k, v, o, do)
+    lq, lk, lv = (a.detach().clone().requires_grad_() for a in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv)
+
+    def library_backward():
+        return torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)
+
+    stats = 2 * bh * t * 4
+    cases["flash_backward_dq"].append(_compare(
+        "flash_backward_dq", shape, "training",
+        lambda: fa.flash_backward_dq(q, k, v, o, do),
+        lambda: fa._reference_backward_dq(q, k, v, o, do),
+        (6 * bh * t * t * d, 2 * 6 * bh * t * d + stats, PEAK_BF16),
+        library_backward))
+    # no one library call computes pass 2 alone: the backward above gives
+    # dq, dk and dv together and stands on pass 1's line
+    cases["flash_backward_dkv"].append(_compare(
+        "flash_backward_dkv", shape, "training",
+        lambda: fa.flash_backward_dkv(q, k, v, do, lse, di),
+        lambda: fa._reference_backward_dkv(q, k, v, do, lse, di),
+        (8 * bh * t * t * d, 2 * 6 * bh * t * d + stats, PEAK_BF16)))
     return cases
 
 
@@ -167,16 +301,58 @@ def _batch(b: int, h: int, w: int, dev, seed: int) -> dict:
             "person_mask": mask}
 
 
+def _train_batch(model, b: int, dev, seed: int) -> dict:
+    """The batch benchmarks/bench_train.py feeds: 0.3 N(0, 1) images at
+    the VAE's input size, unit loss weights."""
+    h, w = model.config.latent_size
+    f = 2 ** (len(model.config.vae.ch_mult) - 1)
+    batch = _batch(b, h, w, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch["image"] = 0.3 * torch.randn(b, f * h, f * w, 3, generator=g,
+                                       device=dev)
+    batch["loss_w"] = torch.ones(b, h, w, 1, device=dev)
+    return batch
+
+
 def _rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return ((a - b).norm() / b.norm()).item()
 
 
+def _rel_l2_lists(xs, ys) -> float:
+    num = sum((x.float() - y.float()).square().sum() for x, y in zip(xs, ys))
+    den = sum(y.float().square().sum() for y in ys)
+    return (num / den).sqrt().item()
+
+
+def _counters():
+    from upgpt_torch.ops import flash_attention as fa
+    from upgpt_torch.ops import fused_gn as fg
+    from upgpt_torch.ops import fused_transformer as ft
+
+    return {"fused_transformer_block": ft.fused_transformer_block,
+            "flash_attention": fa.flash_attention,
+            "flash_backward_dq": fa.flash_backward_dq,
+            "flash_backward_dkv": fa.flash_backward_dkv,
+            "fused_group_norm": fg.fused_group_norm}
+
+
+def _reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+    _counters()["flash_attention"].reference_backwards = 0
+
+
+def _read_counts() -> dict:
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    counts["flash_reference_backwards"] = (
+        _counters()["flash_attention"].reference_backwards)
+    return counts
+
+
 def slice_run(dev, card: str) -> dict:
     from upgpt_torch.inference.pipeline import GenerationPipeline
     from upgpt_torch.models.unet import precompute_cross_kv
-    from upgpt_torch.ops import flash_attention as fa
-    from upgpt_torch.ops import fused_transformer as ft
     from upgpt_torch.zoo import build_latent_diffusion
 
     model = build_latent_diffusion("interp_256", dtype="bfloat16", device=dev)
@@ -213,51 +389,240 @@ def slice_run(dev, card: str) -> dict:
     e2e = {"eps_rel_l2": _rel_l2(eps["kernel"], eps["plain"]),
            "latent_rel_l2": _rel_l2(lat["kernel"], lat["plain"]),
            "image_rel_l2": _rel_l2(img["kernel"], img["plain"])}
-    print(f"end to end (batch 2): eps rel L2 {e2e['eps_rel_l2']:.3e}, "
-          f"4-step latents rel L2 {e2e['latent_rel_l2']:.3e}, decoded image "
-          f"rel L2 {e2e['image_rel_l2']:.3e}", flush=True)
+    print(f"sampling end to end (batch 2): eps rel L2 "
+          f"{e2e['eps_rel_l2']:.3e}, 4-step latents rel L2 "
+          f"{e2e['latent_rel_l2']:.3e}, decoded image rel L2 "
+          f"{e2e['image_rel_l2']:.3e}", flush=True)
     if (e2e["eps_rel_l2"] > EPS_REL_L2 or e2e["latent_rel_l2"] > LATENT_REL_L2
             or e2e["image_rel_l2"] > IMAGE_REL_L2):
         raise RuntimeError(f"kernel path disagrees with plain path: {e2e}")
     del plain
 
-    # --- the main path: DDIM-50, eta 1, batch 8, uint8 ---
+    # --- the sampling path: DDIM-50, eta 1, batch 8, uint8 ---
     pipe = GenerationPipeline(model, num_steps=STEPS, eta=1.0,
                               output_uint8=True)
     batch = _batch(BATCH, h, w, dev, seed=4)
     t0 = time.perf_counter()
     pipe.generate(batch, torch.Generator(device=dev).manual_seed(5))
     torch.cuda.synchronize()
-    print(f"warm-up run: {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"sampling warm-up run: {time.perf_counter() - t0:.3f} s",
+          flush=True)
     times, counts = [], []
     for i in range(TIMED_RUNS):
         gen = torch.Generator(device=dev).manual_seed(10 + i)
         torch.cuda.synchronize()
-        ft.fused_transformer_block.launches = 0
-        fa.flash_attention.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         out = pipe.generate(batch, gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        counts.append((ft.fused_transformer_block.launches,
-                       fa.flash_attention.launches))
+        counts.append(_read_counts())
         if tuple(out.shape) != (BATCH, 256, 192, 3) or out.dtype != torch.uint8:
             raise RuntimeError(f"output {tuple(out.shape)} {out.dtype}")
         if out.min().item() == out.max().item():
             raise RuntimeError("output image is constant")
-    for fused_n, flash_n in counts:
-        # 10 qualifying SpatialTransformers per U-Net eval; the VAE's mid
-        # AttnBlock once per decode
-        if fused_n != 10 * STEPS or flash_n != 1:
-            raise RuntimeError(f"launch counts {counts}: expected "
-                               f"({10 * STEPS}, 1) per run")
+    # 10 qualifying SpatialTransformers per U-Net eval; the VAE decoder's mid
+    # AttnBlock once per decode; nothing of the training kernels
+    expected = {"fused_transformer_block": 10 * STEPS, "flash_attention": 1,
+                "flash_backward_dq": 0, "flash_backward_dkv": 0,
+                "fused_group_norm": 0, "flash_reference_backwards": 0}
+    if any(c != expected for c in counts):
+        raise RuntimeError(f"sampling launch counts {counts}, expected "
+                           f"{expected} per run")
     sec = min(times)
     print(f"DDIM-{STEPS} eta 1 batch {BATCH} -> uint8 {tuple(out.shape)}: "
           f"{' '.join(f'{t:.4f}' for t in times)} s/batch, best {sec:.4f} "
           f"s/batch = {BATCH / sec:.3f} img/s on {card}", flush=True)
-    return {"launches": {"fused_transformer_block": counts[0][0],
-                         "flash_attention": counts[0][1]},
-            "s_per_batch": times, "img_per_s": BATCH / sec, **e2e}
+    return {"launches": counts[0], "s_per_batch": times,
+            "img_per_s": BATCH / sec, **e2e}
+
+
+def expected_train_counts(model) -> dict:
+    """Kernel launches per train step, from the model's structure: every
+    SpatialTransformer the fused kernel takes (once, forward); every
+    ResBlock GroupNorm+SiLU and the out head the GroupNorm kernel takes
+    (forward); the flash forward for the VAE encoder's attention and, in
+    K1's recompute backward, for each fused block whose self-attention the
+    flash gate takes, which also runs each backward pass once."""
+    from upgpt_torch.models.unet import cross_attention_layers
+    from upgpt_torch.ops.flash_attention import flash_attention_qualifies
+    from upgpt_torch.ops.fused_gn import fused_group_norm_qualifies
+    from upgpt_torch.ops.fused_transformer import fused_transformer_qualifies
+
+    cfg = model.config
+    ucfg = cfg.unet
+    h, w = cfg.latent_size
+    deepest = len(ucfg.channel_mult) - 1
+    b, heads = TRAIN_BATCH, ucfg.num_heads
+
+    def level(name):
+        return deepest if name.startswith("mid") else int(name.split("_")[1])
+
+    fused = recompute = 0
+    for name, ch in cross_attention_layers(ucfg):
+        s = 2 ** level(name)
+        t = (h // s) * (w // s)
+        if fused_transformer_qualifies(t, ch, heads, CONTEXT_TOKENS):
+            fused += 1
+            recompute += flash_attention_qualifies(
+                b, heads, t, t, ch // heads, ucfg.dtype)
+    gn = 0
+    for kind, name in model.unet._plan:
+        if kind == "res":
+            s = 2 ** level(name)
+            blk = getattr(model.unet, name)
+            for norm in (blk.norm_in, blk.norm_out):
+                gn += fused_group_norm_qualifies(
+                    (b, h // s, w // s, norm.weight.numel()), 32)
+    gn += fused_group_norm_qualifies(
+        (b, h, w, model.unet.out_norm.weight.numel()), 32)
+    vae = cfg.vae
+    c_mid = vae.ch * vae.ch_mult[-1]
+    encoder_flash = int(vae.use_flash_attention and flash_attention_qualifies(
+        b, 1, h * w, h * w, c_mid, vae.dtype))
+    return {"fused_transformer_block": fused,
+            "flash_attention": encoder_flash + recompute,
+            "flash_backward_dq": recompute, "flash_backward_dkv": recompute,
+            "fused_group_norm": gn, "flash_reference_backwards": 0}
+
+
+def train_run(dev, card: str) -> dict:
+    from upgpt_torch.training.train_state import create_train_state, train_step
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    def build(kernels: bool):
+        return build_latent_diffusion(
+            "interp_256", dtype="bfloat16", param_dtype="float32",
+            device=dev, use_flash_attention=kernels,
+            use_fused_transformer=kernels, use_fused_groupnorm=kernels)
+
+    model = build(True)
+    _redraw(model, seed=21, dev=dev)
+
+    # --- one step, kernel path vs plain path, batch 2 ---
+    plain = build(False)
+    plain.load_state_dict(model.state_dict())
+    small = _train_batch(model, 2, dev, seed=22)
+    draws = model.training_draws(2, torch.Generator(device=dev).manual_seed(23))
+    result = {}
+    for tag, m in (("kernel", model), ("plain", plain)):
+        # no warm-up here: the default schedule's first step is at 1e-6 of
+        # the LR, an update below float32's resolution of the parameters
+        st = create_train_state(m, LEARNING_RATE, scheduler=lambda step: 1.0)
+        before = [p.detach().clone() for p in st.params]
+        st, metrics = train_step(m, st, small, draws=draws)
+        if not torch.isfinite(metrics["loss"]):
+            raise RuntimeError(f"{tag} path: non-finite training loss")
+        result[tag] = (metrics["loss"].item(),
+                       [p.grad for p in st.params], before, st.params)
+    del st
+    (lk, gk, bk, pk), (lp, gp, bp, pp) = result["kernel"], result["plain"]
+    e2e = {"train_loss_rel": abs(lk - lp) / abs(lp),
+           "train_grad_rel_l2": _rel_l2_lists(gk, gp),
+           "train_param_rel_l2": _rel_l2_lists(pk, pp),
+           "train_update_rel_l2": _rel_l2_lists(
+               [a - b for a, b in zip(pk, bk)],
+               [a - b for a, b in zip(pp, bp)])}
+    print(f"training end to end (batch 2, one AdamW step): loss kernel "
+          f"{lk:.6f} plain {lp:.6f} (rel {e2e['train_loss_rel']:.3e}), "
+          f"gradient rel L2 {e2e['train_grad_rel_l2']:.3e}, parameters rel "
+          f"L2 {e2e['train_param_rel_l2']:.3e}, update rel L2 "
+          f"{e2e['train_update_rel_l2']:.3e}", flush=True)
+    del plain, result, gk, gp, bk, bp, pk, pp
+    if (e2e["train_loss_rel"] > TRAIN_LOSS_REL
+            or e2e["train_grad_rel_l2"] > TRAIN_GRAD_REL_L2
+            or e2e["train_param_rel_l2"] > TRAIN_PARAM_REL_L2
+            or e2e["train_update_rel_l2"] > TRAIN_UPDATE_REL_L2):
+        raise RuntimeError(f"training kernel path disagrees with plain path: "
+                           f"{e2e}")
+
+    # --- the training path: batch 12, one warm-up and five timed steps ---
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    state = create_train_state(model, LEARNING_RATE)
+    start = [p.detach().clone() for p in state.params]
+    batch = _train_batch(model, TRAIN_BATCH, dev, seed=24)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    expected = expected_train_counts(model)
+    t0 = time.perf_counter()
+    state, metrics = train_step(model, state, batch, gen)
+    torch.cuda.synchronize()
+    print(f"training warm-up step: {time.perf_counter() - t0:.3f} s, loss "
+          f"{metrics['loss'].item():.6f}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    times, counts, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = train_step(model, state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(_read_counts())
+        losses.append(metrics["loss"].item())
+        if not math.isfinite(losses[-1]):
+            raise RuntimeError(f"non-finite training loss {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if any(c != expected for c in counts):
+        raise RuntimeError(f"training launch counts {counts}, expected "
+                           f"{expected} per step")
+    moved = sum(not torch.equal(a, p) for a, p in zip(start, state.params))
+    shadow = sum(not torch.equal(a, s) for a, s in zip(start, state.ema.shadow))
+    if moved == 0 or shadow == 0:
+        raise RuntimeError(f"after {state.step} steps {moved} parameters and "
+                           f"{shadow} EMA tensors changed")
+    ms = 1e3 * min(times)
+    print(f"train step interp_256 batch {TRAIN_BATCH} (bf16 compute, float32 "
+          f"masters, AdamW + EMA): {' '.join(f'{1e3 * t:.2f}' for t in times)}"
+          f" ms/step, best {ms:.2f} ms/step = {TRAIN_BATCH / ms * 1e3:.3f} "
+          f"img/s on {card}; losses {' '.join(f'{x:.6f}' for x in losses)}; "
+          f"{moved}/{len(start)} parameters and {shadow} EMA tensors moved; "
+          f"peak memory {peak_gb:.3f} GiB; launches per step {counts[0]}",
+          flush=True)
+    return {"launches": counts[0], "ms_per_step": [1e3 * t for t in times],
+            "img_per_s": TRAIN_BATCH / ms * 1e3, "losses": losses,
+            "peak_memory_gib": peak_gb, **e2e}
+
+
+KERNELS = [
+    # name, source, replaces (the TPU kernel's def line)
+    ("fused_transformer_block", "upgpt_torch/csrc/fused_transformer.cu",
+     "upgpt_tpu/ops/fused_transformer.py:436"),
+    ("flash_attention", "upgpt_torch/csrc/flash_attention.cu",
+     "upgpt_tpu/ops/flash_attention.py:284"),
+    ("flash_backward_dq", "upgpt_torch/csrc/flash_backward.cu",
+     "upgpt_tpu/ops/flash_attention.py:179"),
+    ("flash_backward_dkv", "upgpt_torch/csrc/flash_backward.cu",
+     "upgpt_tpu/ops/flash_attention.py:179"),
+    ("fused_group_norm", "upgpt_torch/csrc/fused_gn.cu",
+     "upgpt_tpu/ops/fused_gn.py:198"),
+]
+
+
+def kernel_entry(name, source, replaces, cases, by_path) -> dict:
+    """One kernel's line: launches over one sampling run and one train step;
+    ms, plain_ms, library_ms and bound_ms summed over the shapes the two
+    paths give it (one call each); max_abs_err over every case."""
+    on_path = [c for c in cases if c["path"] != "none"]
+    libs = [c["library_ms"] for c in on_path]
+    by_bytes = sum(c["bound_ms"] for c in on_path if c["bound_by"] == "bytes")
+    bound_ms = sum(c["bound_ms"] for c in on_path)
+    entry = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": sum(c["ms"] for c in on_path),
+        "plain_ms": sum(c["plain_ms"] for c in on_path),
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if by_bytes > bound_ms / 2 else "operations",
+        "library_ms": None if None in libs else sum(libs),
+        "cases": cases,
+    }
+    if name == "flash_attention":
+        entry["also_replaces"] = "upgpt_tpu/ops/flash_attention.py:310"
+    if name == "flash_backward_dq":
+        entry["library_covers"] = "dq, dk and dv together"
+    return entry
 
 
 def main() -> None:
@@ -282,30 +647,17 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     cases = kernel_checks(dev)
-    result = slice_run(dev, card)
+    sampling = slice_run(dev, card)
+    torch.cuda.empty_cache()
+    training = train_run(dev, card)
 
-    def entry(kname, source, replaces, path_cases):
-        cs = cases[kname]
-        return {
-            "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": result["launches"][kname],
-            "max_abs_err": max(c["max_abs_err"] for c in cs),
-            "ms": sum(cs[i]["ms"] for i in path_cases),
-            "plain_ms": sum(cs[i]["plain_ms"] for i in path_cases),
-            "cases": cs,
-        }
-
-    kernels = [
-        # ms: one ds1 plus one ds2 call, the two shapes of the path
-        entry("fused_transformer_block", "upgpt_torch/csrc/fused_transformer.cu",
-              "upgpt_tpu/ops/fused_transformer.py:436", [0, 1]),
-        # ms: the VAE mid AttnBlock shape; the second case covers K3's
-        # 512px regime (upgpt_tpu/ops/flash_attention.py:310)
-        entry("flash_attention", "upgpt_torch/csrc/flash_attention.cu",
-              "upgpt_tpu/ops/flash_attention.py:284", [0]),
-    ]
-    print(json.dumps({"slice": {k: v for k, v in result.items()
-                                if k != "launches"}}), flush=True)
+    kernels = [kernel_entry(k, src, rep, cases[k], {
+        "sampling_run": sampling["launches"][k],
+        "train_step": training["launches"][k]}) for k, src, rep in KERNELS]
+    print(json.dumps({"sampling": {k: v for k, v in sampling.items()
+                                   if k != "launches"},
+                      "training": {k: v for k, v in training.items()
+                                   if k != "launches"}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,21 @@
-"""Profile the PyTorch port's DDIM-50 sampling path on one NVIDIA GPU.
+"""Profile the PyTorch port's sampling path or train step on one NVIDIA GPU.
 
-    python3 profile_slice.py [batch ...]        (default: 8 32)
+    python3 profile_slice.py [batch ...]          (default: 8 32)
+    python3 profile_slice.py --train [batch ...]  (default: 12)
 
 Run from the root of the repository on a machine with a CUDA card and the
-CUDA toolkit. For each batch it builds interp_256 at full width in bf16 with
-seeded random weights (as chip_smoke.py does), runs
-GenerationPipeline(DDIM-50, eta 1, uint8) once to warm up, once timed
-without the profiler, and once under torch.profiler, then prints
+CUDA toolkit. For each batch it builds interp_256 at full width with seeded
+random weights (as chip_smoke.py does): in bf16 for sampling, or with
+float32 masters under bf16 compute and the training kernels on for
+`--train`. It runs the program (GenerationPipeline(DDIM-50, eta 1, uint8),
+or one train step: VAE encode, U-Net forward and backward, AdamW, EMA)
+once to warm up (twice for a train step), once timed without the profiler,
+and once under torch.profiler, then prints
 
 - the unprofiled wall time per batch and img/s;
 - device busy time: the length of the union of the intervals of every
-  device activity the profiler recorded (kernels, copies, sets), and the
+  device activity the profiler recorded (kernels, copies, sets; not the
+  ranges of user annotations such as an optimizer step), and the
   busy share, busy time / unprofiled wall time (idle share = 1 - busy);
 - device time by kind, summed over the device activities alone (the CPU
   operator rows, which carry their kernels' time a second time, are left
@@ -36,6 +41,10 @@ KINDS = [
     ("attention (csrc, K1 and flash)", lambda n: "attention_kernel" in n),
     ("K1 GEMMs (csrc)", lambda n: "gemm_kernel<" in n),
     ("K1 GroupNorm stats (csrc)", lambda n: "gn_stats_kernel" in n),
+    ("flash backward K4 (csrc)", lambda n: "dq_kernel<" in n
+     or "dkv_kernel<" in n),
+    ("GroupNorm+SiLU K5 (csrc)", lambda n: "gn_kernel<" in n),
+    ("optimizer and EMA (foreach)", lambda n: "multi_tensor" in n),
     ("memcpy / memset", lambda n: n.startswith(("memcpy", "memset"))),
     ("convolutions (cuDNN)",
      lambda n: any(s in n for s in ("conv", "implicit", "fprop", "cudnn"))),
@@ -64,19 +73,8 @@ def _busy_us(spans) -> float:
     return total
 
 
-def profile_batch(model, b: int, dev, card: str) -> None:
-    from upgpt_torch.inference.pipeline import GenerationPipeline
-
-    h, w = model.config.latent_size
-    batch = chip_smoke._batch(b, h, w, dev, seed=4)
-    pipe = GenerationPipeline(model, num_steps=STEPS, eta=1.0,
-                              output_uint8=True)
-
-    def run(seed):
-        pipe.generate(batch, torch.Generator(device=dev).manual_seed(seed))
-        torch.cuda.synchronize()
-
-    run(0)
+def profile_run(run, label: str, b: int, card: str) -> None:
+    """`run(seed)` once timed without the profiler, once under it."""
     t0 = time.perf_counter()
     run(1)
     wall = time.perf_counter() - t0
@@ -85,7 +83,10 @@ def profile_batch(model, b: int, dev, card: str) -> None:
         t0 = time.perf_counter()
         run(2)
         profiled_wall = time.perf_counter() - t0
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device activities, without the profiler's user-annotation ranges
+    # (an optimizer step's range spans kernels that are counted themselves)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not device:
         raise RuntimeError("the profiler recorded no device activity")
     busy = _busy_us((e.time_range.start, e.time_range.end)
@@ -99,9 +100,8 @@ def profile_batch(model, b: int, dev, card: str) -> None:
         by_name[e.name] += dur
         calls[e.name] += 1
     total = sum(by_kind.values())
-    print(f"batch {b}: DDIM-{STEPS} eta 1 wall {wall:.4f} s/batch = "
-          f"{b / wall:.3f} img/s (profiled run {profiled_wall:.4f} s) on "
-          f"{card}", flush=True)
+    print(f"batch {b}: {label} wall {wall:.4f} s = {b / wall:.3f} img/s "
+          f"(profiled run {profiled_wall:.4f} s) on {card}", flush=True)
     print(f"batch {b}: device busy {busy:.4f} s, busy share {busy / wall:.4f}"
           f", idle share {1 - busy / wall:.4f}; {len(device)} device "
           f"activities summing to {total / 1e6:.4f} s", flush=True)
@@ -112,20 +112,59 @@ def profile_batch(model, b: int, dev, card: str) -> None:
         print(f"  {us / 1e3:11.3f} {calls[name]:7d}  {name[:110]}")
 
 
+def profile_sampling(model, b: int, dev, card: str) -> None:
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+
+    h, w = model.config.latent_size
+    batch = chip_smoke._batch(b, h, w, dev, seed=4)
+    pipe = GenerationPipeline(model, num_steps=STEPS, eta=1.0,
+                              output_uint8=True)
+
+    def run(seed):
+        pipe.generate(batch, torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+
+    run(0)
+    profile_run(run, f"DDIM-{STEPS} eta 1 per batch", b, card)
+
+
+def profile_train(model, b: int, dev, card: str) -> None:
+    from upgpt_torch.training.train_state import create_train_state, train_step
+
+    state = create_train_state(model, chip_smoke.LEARNING_RATE)
+    batch = chip_smoke._train_batch(model, b, dev, seed=24)
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def run(_seed):
+        train_step(model, state, batch, gen)
+        torch.cuda.synchronize()
+
+    run(0)
+    run(0)
+    profile_run(run, "train step", b, card)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: no CUDA device; this script only "
                          "runs on a GPU")
     from upgpt_torch.zoo import build_latent_diffusion
 
-    batches = [int(a) for a in sys.argv[1:]] or [8, 32]
+    train = "--train" in sys.argv
+    batches = [int(a) for a in sys.argv[1:] if a != "--train"]
     dev = torch.device("cuda", 0)
     card = chip_smoke._card_line()
     print(card, flush=True)
-    model = build_latent_diffusion("interp_256", dtype="bfloat16", device=dev)
+    if train:
+        model = build_latent_diffusion(
+            "interp_256", dtype="bfloat16", param_dtype="float32",
+            device=dev, use_fused_groupnorm=True)
+    else:
+        model = build_latent_diffusion("interp_256", dtype="bfloat16",
+                                       device=dev)
     chip_smoke._redraw(model, seed=1, dev=dev)
-    for b in batches:
-        profile_batch(model, b, dev, card)
+    for b in batches or ([chip_smoke.TRAIN_BATCH] if train else [8, 32]):
+        (profile_train if train else profile_sampling)(model, b, dev, card)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from upgpt_torch.models.unet import SpatialTransformer  # noqa: E402
 from upgpt_torch.ops import flash_attention as fa  # noqa: E402
+from upgpt_torch.ops import fused_gn as fg  # noqa: E402
 from upgpt_torch.ops import fused_transformer as ft  # noqa: E402
 
 TK, CTX = 87, 768
@@ -119,8 +120,8 @@ def test_fused_kernel_raises_on_what_it_does_not_take(dev):
     p = _random_tree(64, dev)
     x = torch.zeros(2, 64, 64, device=dev, dtype=torch.bfloat16)
     ctx = torch.zeros(2, TK, CTX, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):  # in-kernel projection
-        ft.fused_transformer_block(x, p, 4, context=ctx)
+    with pytest.raises(ValueError):  # to_k/to_v take 768 wide, not 767
+        ft.fused_transformer_block(x, p, 4, context=ctx[..., :-1])
     kv = torch.zeros(2, TK, 64, device=dev)
     with pytest.raises(TypeError):
         ft.fused_transformer_block(x.float(), p, 4, kv=(kv, kv))
@@ -132,12 +133,12 @@ def test_fused_kernel_raises_on_what_it_does_not_take(dev):
 @pytest.mark.cuda
 def test_spatial_transformer_with_context_only_raises(dev):
     # a qualifying block given a context and no precomputed K/V reaches the
-    # kernel's wrapper, which does not take that variant
-    mod = SpatialTransformer(64, 4, 16, context_dim=CTX, fused=True).to(
+    # kernel's training variant, which takes even context widths only
+    mod = SpatialTransformer(64, 4, 16, context_dim=CTX - 1, fused=True).to(
         dev, torch.bfloat16)
     x = torch.randn(2, 8, 8, 64, device=dev).bfloat16()
-    ctx = torch.randn(2, TK, CTX, device=dev).bfloat16()
-    with torch.no_grad(), pytest.raises(NotImplementedError):
+    ctx = torch.randn(2, TK, CTX - 1, device=dev).bfloat16()
+    with torch.no_grad(), pytest.raises(ValueError):
         mod(x, ctx)
 
 
@@ -155,3 +156,153 @@ def test_spatial_transformer_dispatches_to_the_kernel(dev):
         want = mod(x, kv=kv)
     assert ft.fused_transformer_block.launches == before + 1
     assert _rel(got, want) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,heads", [
+    (4, 768, 224, 8), (4, 192, 448, 8), (2, 64, 64, 4), (3, 40, 96, 3),
+])
+def test_fused_kernel_with_context_matches_twin(dev, b, t, c, heads):
+    p = _random_tree(c, dev, seed=2)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(b, t, c, generator=g, device=dev).bfloat16()
+    ctx = torch.randn(b, TK, CTX, generator=g, device=dev).bfloat16()
+    before = ft.fused_transformer_block.launches
+    with torch.no_grad():
+        got = ft.fused_transformer_block(x, p, heads, context=ctx)
+        want = ft.transformer_block_reference(x, p, heads, context=ctx)
+    assert ft.fused_transformer_block.launches == before + 1
+    assert _rel(got, want) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((12, 8, 768, 28), torch.bfloat16, 2e-2),  # 256px training ds1
+    ((2, 1, 768, 512), torch.bfloat16, 2e-2),  # VAE mid AttnBlock
+    ((1, 2, 512, 28), torch.float32, 1e-5),
+    ((1, 2, 200, 28), torch.float32, 1e-5),   # ragged T
+])
+def test_flash_backward_kernels_match_twin(dev, shape, dtype, tol):
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev, dtype=dtype)
+                   for _ in range(4))
+    o = fa._reference_attention(q, k, v)
+    before = (fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+    dq, lse, di = fa.flash_backward_dq(q, k, v, o, do)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    assert (fa.flash_backward_dq.launches,
+            fa.flash_backward_dkv.launches) == (before[0] + 1, before[1] + 1)
+    wdq, wlse, wdi = fa._reference_backward_dq(q, k, v, o, do)
+    wdk, wdv = fa._reference_backward_dkv(q, k, v, do, wlse, wdi)
+    for got, want in ((lse, wlse), (di, wdi), (dq, wdq), (dk, wdk),
+                      (dv, wdv)):
+        assert _rel(got, want) < tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradient_runs_the_kernels(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(2, 4, 768, 28, generator=g, device=dev)
+               .bfloat16().requires_grad_() for _ in range(3))
+    before = (fa.flash_attention.launches, fa.flash_backward_dq.launches,
+              fa.flash_backward_dkv.launches,
+              fa.flash_attention.reference_backwards)
+    fa.flash_attention(q, k, v).float().square().sum().backward()
+    assert (fa.flash_attention.launches, fa.flash_backward_dq.launches,
+            fa.flash_backward_dkv.launches,
+            fa.flash_attention.reference_backwards) == (
+                before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_flash_backward_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(1, 1, 512, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_backward_dq(q, q, q, q, q)
+    q = torch.zeros(1, 1, 64, 512, device=dev).transpose(2, 3)
+    with pytest.raises(ValueError):
+        fa.flash_backward_dq(q, q, q, q, q)
+    q = torch.zeros(1, 1, 3072, 64, device=dev)  # past the gate
+    with pytest.raises(ValueError):
+        fa.flash_backward_dq(q, q, q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,silu,tol", [
+    ((12, 32, 24, 224), torch.bfloat16, True, 2e-2),
+    ((12, 32, 24, 672), torch.bfloat16, True, 2e-2),
+    ((12, 4, 3, 1792), torch.bfloat16, True, 2e-2),
+    ((12, 16, 12, 448), torch.bfloat16, False, 2e-2),
+    ((2, 8, 6, 224), torch.float32, True, 1e-5),
+])
+def test_fused_gn_kernel_matches_twin(dev, shape, dtype, silu, tol):
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (2 * torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+    bias = 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+    before = fg.fused_group_norm.launches
+    got = fg.fused_group_norm(x, scale, bias, 32, 1e-5, silu)
+    torch.cuda.synchronize()
+    assert fg.fused_group_norm.launches == before + 1
+    assert got.dtype == dtype
+    assert _rel(got, fg._reference_gn(x, scale, bias, 32, 1e-5, silu)) < tol
+
+
+@pytest.mark.cuda
+def test_fused_gn_rejects_what_it_does_not_take(dev):
+    ones, zeros = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    x = torch.zeros(1, 4, 4, 128, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fg.fused_group_norm(x, ones, zeros)
+    x = torch.zeros(1, 4, 128, 4, device=dev).transpose(2, 3)
+    with pytest.raises(ValueError):
+        fg.fused_group_norm(x, ones, zeros)
+    # where JAX would take the row-tiled statistics kernel (not ported)
+    x = torch.zeros(1, 256, 192, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        fg.fused_group_norm(x, ones, zeros)
+
+
+@pytest.mark.cuda
+def test_build_latent_diffusion_lands_on_cuda(dev):
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    model = build_latent_diffusion("tiny")
+    assert all(p.device.type == "cuda" for p in model.parameters())
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_moves_every_launch_counter(dev):
+    from upgpt_torch.training.train_state import create_train_state, train_step
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    model = build_latent_diffusion("tiny", dtype="bfloat16",
+                                   param_dtype="float32",
+                                   use_fused_groupnorm=True)
+    state = create_train_state(model, learning_rate=1e-4)
+    g = torch.Generator(device=dev).manual_seed(6)
+    b = 2
+    batch = {"image": torch.rand(b, 64, 48, 3, generator=g, device=dev) * 2 - 1,
+             "person_mask": -torch.ones(b, 32, 24, 1, device=dev),
+             "text_emb": torch.randn(b, 77, 768, generator=g, device=dev),
+             "style_emb": torch.randn(b, 9, 768, generator=g, device=dev),
+             "smpl": torch.randn(b, 1, 85, generator=g, device=dev),
+             "loss_w": torch.ones(b, 32, 24, 1, device=dev)}
+    counters = [(ft.fused_transformer_block, "launches"),
+                (fg.fused_group_norm, "launches"),
+                (fa.flash_attention, "launches"),
+                (fa.flash_backward_dq, "launches"),
+                (fa.flash_backward_dkv, "launches")]
+    before = [getattr(f, a) for f, a in counters]
+    falls = fa.flash_attention.reference_backwards
+    start = [p.detach().clone() for p in state.params]
+    state, metrics = train_step(model, state, batch, g)
+    torch.cuda.synchronize()
+    after = [getattr(f, a) for f, a in counters]
+    assert all(n > m for n, m in zip(after, before)), (before, after)
+    assert fa.flash_attention.reference_backwards == falls
+    assert torch.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0
+    assert all(p.dtype == torch.float32 for p in state.params)
+    assert any(not torch.equal(a, p) for a, p in zip(start, state.params))

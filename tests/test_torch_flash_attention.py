@@ -74,8 +74,81 @@ def test_vae_attn_block_with_flash_matches_jax():
 
 
 def test_flash_backward_is_not_ported():
+    # Named when the backward raised. It now checks that the backward is the
+    # ported two-pass one (plain versions on CPU) and not plain autograd of
+    # the forward, and that both give the same gradients in float32.
     q, k, v = (torch.randn(1, 1, 8, 4, requires_grad=True) for _ in range(3))
-    # the CPU path is the plain, differentiable version
-    tflash.flash_attention(q, k, v).sum().backward()
-    with pytest.raises(NotImplementedError):
-        tflash._FlashForward.backward(None, torch.zeros(1))
+    falls = tflash.flash_attention.reference_backwards
+    out = tflash.flash_attention(q, k, v)
+    assert out.grad_fn.name() == "_FlashForwardBackward"
+    got = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert tflash.flash_attention.reference_backwards == falls
+    want = torch.autograd.grad(
+        tflash._reference_attention(q, k, v).square().sum(), (q, k, v))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 512, 16), (1, 2, 512, 28)])
+def test_flash_backward_matches_jax_kernel(shape):
+    """The port's backward passes (plain versions on CPU) against jax.grad
+    through the Pallas forward and blocked backward in interpret mode."""
+    q, k, v = _qkv(shape, 3)
+    ct = np.random.default_rng(4).normal(size=shape).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(jflash.flash_attention(q_, k_, v_) * ct)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(jloss, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    before = (tflash.flash_backward_dq.launches,
+              tflash.flash_backward_dkv.launches,
+              tflash.flash_attention.reference_backwards)
+    got = torch.autograd.grad(tflash.flash_attention(*leaves), leaves,
+                              torch.from_numpy(ct))
+    assert (tflash.flash_backward_dq.launches,
+            tflash.flash_backward_dkv.launches,
+            tflash.flash_attention.reference_backwards) == before
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-3)
+
+
+def test_flash_backward_statistics():
+    """Pass 1's row statistics: the log2-space LSE and Di = rowsum(dO*O)."""
+    q, k, v, do = _qkv((1, 2, 64, 8), 5) + [np.random.default_rng(6).normal(
+        size=(1, 2, 64, 8)).astype(np.float32)]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o = tflash._reference_attention(tq, tk, tv)
+    _, lse, di = tflash.flash_backward_dq(tq, tk, tv, o, tdo)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(8)
+    want = np.log(np.exp(s.astype(np.float64)).sum(-1)) / np.log(2.0)
+    np.testing.assert_allclose(lse.numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(di.numpy(), (do * o.numpy()).sum(-1),
+                               atol=1e-5)
+
+
+def test_flash_backward_beyond_the_gate_is_plain_autograd():
+    shape = (1, 1, 3072, 8)  # T = 3072: past the Hopper gate
+    assert not tflash.flash_backward_fits(3072, 8)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in _qkv(shape, 7)]
+    before = tflash.flash_attention.reference_backwards
+    got = torch.autograd.grad(tflash.flash_attention(*leaves).sum(), leaves)
+    assert tflash.flash_attention.reference_backwards == before + 1
+    want = torch.autograd.grad(
+        tflash._reference_attention(*leaves).sum(), leaves)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("t,d,ok", [
+    (768, 28, True),     # the 256px training path's ds1 self-attention
+    (768, 512, True),    # the VAE's mid AttnBlock
+    (2880, 64, True),
+    (2944, 64, False),
+    (3072, 32, False),   # 512px ds1: plain autograd until a wider kernel
+])
+def test_backward_gate(t, d, ok):
+    assert tflash.flash_backward_fits(t, d) is ok

@@ -1,11 +1,12 @@
 """upgpt_torch fused SpatialTransformer block against the JAX Pallas kernel.
 
-On CPU the port's `fused_transformer_block` runs its plain twin; the JAX
-side runs its Pallas kernel in interpret mode, as
-tests/test_fused_transformer.py does. float32 throughout, B=2, T=64, C=64,
-4 heads and an 87-token precomputed K/V: the two compute the same block up
-to float32 summation order and the kernel's folded 1/sqrt(dh) q scale
-(the JAX package's own kernel-vs-twin tolerance, atol 2e-5 / rtol 1e-4).
+On CPU the port's `fused_transformer_block` runs its plain twin, inside the
+same autograd.Function the card uses; the JAX side runs its Pallas kernel in
+interpret mode, as tests/test_fused_transformer.py does. float32
+throughout, B=2, T=64, C=64, 4 heads and an 87-token context or
+precomputed K/V: the two compute the same block up to float32 summation
+order and the kernel's folded 1/sqrt(dh) q scale (the JAX package's own
+kernel-vs-twin tolerance, atol 2e-5 / rtol 1e-4; atol 1e-4 on gradients).
 The CUDA kernel itself is held against the twin on a card by
 tests/test_torch_cuda.py.
 """
@@ -21,7 +22,9 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from upgpt_tpu.models.unet import SpatialTransformer as JaxST  # noqa: E402
 from upgpt_tpu.ops import fused_transformer as jft  # noqa: E402
-from upgpt_torch.convert.from_jax import load_jax_params  # noqa: E402
+from upgpt_torch.convert.from_jax import (  # noqa: E402
+    flatten_tree, load_jax_params, torch_array, torch_key,
+)
 from upgpt_torch.models.unet import SpatialTransformer  # noqa: E402
 from upgpt_torch.ops import fused_transformer as tft  # noqa: E402
 
@@ -116,3 +119,39 @@ def test_spatial_transformer_follows_reloaded_weights(setup):
         got = fresh(torch.from_numpy(x), torch.from_numpy(ctx))
         want = module(torch.from_numpy(x), torch.from_numpy(ctx))
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_fused_block_with_context_and_gradients_match_jax(setup):
+    """The training variant (kv=None: the block projects the context
+    itself): the forward against the Pallas kernel in interpret mode, and
+    the gradients of tokens, every parameter and the context against
+    jax.vjp through the JAX custom VJP (which recomputes its twin)."""
+    x, ctx, params, _, module = setup
+    tokens = x.reshape(B, H * W, C)
+    ct = np.random.default_rng(8).normal(size=tokens.shape).astype(
+        np.float32)
+    jtree = jax.tree.map(jnp.asarray, params)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(
+            lambda x_, p_, c_: jft.fused_transformer_block(x_, p_, HEADS, c_),
+            jnp.asarray(tokens), jtree, jnp.asarray(ctx))
+        gx, gp, gc = vjp(jnp.asarray(ct))
+    module.zero_grad()
+    tx = torch.from_numpy(tokens).requires_grad_()
+    tc = torch.from_numpy(ctx).requires_grad_()
+    got = tft.fused_transformer_block(tx, tft.param_tree(module), HEADS,
+                                      context=tc)
+    assert got.grad_fn.name() == "_FusedBlockBackward"
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **TOL)
+    got.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), atol=1e-4)
+    np.testing.assert_allclose(tc.grad.numpy(), np.asarray(gc), atol=1e-4)
+    assert tc.grad.abs().max() > 0
+    grads = dict(module.named_parameters())
+    flat = flatten_tree(gp)
+    assert len(flat) == len(grads)
+    for jk, g in flat.items():
+        np.testing.assert_allclose(grads[torch_key(jk)].grad.numpy(),
+                                   torch_array(jk, np.asarray(g)),
+                                   atol=1e-4, err_msg=jk)

@@ -27,7 +27,6 @@ from upgpt_torch.inference.pipeline import GenerationPipeline  # noqa: E402
 from upgpt_torch.zoo import build_latent_diffusion  # noqa: E402
 
 B, STEPS = 2, 4
-NOT_PORTED = ("vae/encoder/", "vae/quant_conv/")
 
 
 def _random_params(shapes, seed):
@@ -50,8 +49,8 @@ def models():
     jm = jax_build("tiny", use_flash_attention=False)
     params = _random_params(
         jax.eval_shape(jm.init_params, jax.random.PRNGKey(0)), seed=0)
-    tm = load_jax_params(build_latent_diffusion("tiny"), params,
-                         ignore=NOT_PORTED)
+    tm = load_jax_params(build_latent_diffusion("tiny", device="cpu"),
+                         params)
     rng = np.random.default_rng(1)
     h, w = jm.config.latent_size
     batch = {
@@ -155,7 +154,8 @@ def test_generator_draws_are_reproducible(models):
 def test_to_eps_matches_jax(parameterization):
     jm = jax_build("tiny", use_flash_attention=False,
                    parameterization=parameterization)
-    tm = build_latent_diffusion("tiny", parameterization=parameterization)
+    tm = build_latent_diffusion("tiny", device="cpu",
+                                parameterization=parameterization)
     rng = np.random.default_rng(8)
     out = rng.normal(size=(3, 4, 5, 4)).astype(np.float32)
     x = rng.normal(size=(3, 4, 5, 4)).astype(np.float32)
@@ -188,3 +188,14 @@ def test_cfg_eps_model_matches_jax():
     got = cfg_eps_model(lambda *a: model(*a, torch), tc, tu, 3.0)(
         torch.from_numpy(x), torch.from_numpy(t))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_build_defaults_to_the_card():
+    # the entry point builds on the card unless the caller names a device
+    if torch.cuda.is_available():
+        model = build_latent_diffusion("tiny")
+        assert model.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            build_latent_diffusion("tiny")
+    assert build_latent_diffusion("tiny", device="cpu").device.type == "cpu"

@@ -2,10 +2,10 @@
 
 Module names mirror `upgpt_tpu`. Public functions keep the JAX package's
 layouts (NHWC images, (B, T, C) tokens, (B, H, T, D) attention inputs) so
-each function can be held against its JAX counterpart. The two Pallas
-kernels on the sampling path are hand-written CUDA under `csrc/`, built with
-nvcc at first use (`ops/_build.py`); on CPU tensors every kernel wrapper runs
-its plain PyTorch version instead.
+each function can be held against its JAX counterpart. The Pallas kernels
+on the sampling path and the training step are hand-written CUDA under
+`csrc/`, built with nvcc at first use (`ops/_build.py`); on CPU tensors every
+kernel wrapper runs its plain PyTorch version instead.
 
 This package imports torch and numpy, never jax, flax or upgpt_tpu.
 """

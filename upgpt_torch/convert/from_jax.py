@@ -61,9 +61,9 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray],
                         ignore: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
     """Map a flattened JAX tree onto `module`'s state_dict, strictly.
 
-    `ignore` lists JAX key prefixes dropped on purpose (for example
-    "vae/encoder/", which the port does not have yet). Tensors take the
-    module's dtype and device.
+    `ignore` lists JAX key prefixes dropped on purpose (a subtree the
+    module does not hold). Tensors take the module's dtype and device, so
+    float32 masters load as float32.
     """
     ignore = tuple(ignore)
     target = module.state_dict()

@@ -1,18 +1,21 @@
-// The SpatialTransformer block (depth 1, precomputed cross K/V) for Hopper
-// (sm_90a), bf16 in and out with float32 accumulation:
+// The SpatialTransformer block (depth 1) for Hopper (sm_90a), bf16 in and
+// out with float32 accumulation:
 //
-//   GN32(eps) -> proj_in -> LN1 -> self-attn (+res) -> LN2 -> cross-attn on
-//   precomputed K/V (+res) -> LN3 -> GEGLU FF (+res) -> proj_out + input
+//   GN32(eps) -> proj_in -> LN1 -> self-attn (+res) -> LN2 -> cross-attn
+//   (+res) -> LN3 -> GEGLU FF (+res) -> proj_out + input
 //
 // Replaces upgpt_tpu/ops/fused_transformer.py::_fused_forward (_block_kernel),
-// which runs the whole block per sample in one TPU program.
+// which runs the whole block per sample in one TPU program, in both of its
+// variants: cross-attention K/V precomputed by the caller (sampling), or the
+// context (B, Tk, Cd) projected through attn2's to_k and to_v inside the same
+// call (training, kv=None).
 //
 // What bounds it on this card: one block per sample does not fit. At ds2
 // (T=192, C=448) the bf16 weights alone are 9.2 MB, forty times a block's
 // 227 KB of shared memory, and the ds1 token stream (768 x 224) needs many
 // SMs to keep the card busy. The work is a chain of matrix products with
 // cheap prologues and epilogues, so the block is split into eleven launches
-// on one stream, all hand-written here:
+// (twelve with the context projection) on one stream, all hand-written here:
 //   (a) gn_stats_kernel: GroupNorm statistics per (sample, group), float32,
 //       var = E[x^2] - E[x]^2 clamped at 0, as _block_kernel computes them;
 //   (b) gemm_kernel: a 64x64-tiled bf16 tensor-core (WMMA 16x16x16) product
@@ -21,15 +24,18 @@
 //       LayerNorm row statistics computed in the block) and epilogue (bias,
 //       q-column scale, residual add, or the GEGLU gate x * gelu_erf(g) with
 //       the x and gate halves of W multiplied side by side). It covers
-//       proj_in, packed QKV, both to_out, the cross to_q, both FF products
-//       and proj_out;
+//       proj_in, packed QKV, both to_out, the cross to_q, both FF products,
+//       proj_out and, in the training variant, the context's K/V projection
+//       (two pieces of W into one (B*Tk, 2C) product, no prologue; the row
+//       count B*Tk is masked like any other);
 //   (c) the shared attention routine of flash_attention.cu, reading head h
 //       of the packed (B, T, C) activations at column offset h * dh, so no
 //       head transpose is ever materialised.
 // Head dims 28 and 56 need no padding in memory: (b) runs over C, and (c)
-// zero-pads its D chunks in shared memory. Intermediates (~10 B*T*C bf16)
-// live in a workspace the caller allocates; the bf16 residual stream is
-// rounded after every sub-block, as in _block_kernel.
+// zero-pads its D chunks in shared memory. Intermediates (~10 B*T*C bf16,
+// plus 2 B*Tk*C for projected K/V) live in a workspace the caller allocates;
+// the bf16 residual stream is rounded after every sub-block, as in
+// _block_kernel.
 #include <mma.h>
 
 #include "attention.cuh"
@@ -345,8 +351,10 @@ AttnArgs packed_attention(const bf16* q, long long q_row, const bf16* k,
 
 // x, out: (B, T, C) bf16. Weights in nn.Linear layout (out, in), bf16:
 // w_q1, w_k1, w_v1 (C, C) of attn1, w_ff1 (8C, C) with the GEGLU
-// x half first, w_ff2 (C, 4C). k2, v2: precomputed cross K/V (B, Tk, C).
-// ws: 10*B*T*C bf16 workspace; stats: B*64 float32.
+// x half first, w_ff2 (C, 4C). Cross K/V: either k2, v2 precomputed
+// (B, Tk, C) with ctx null, or ctx (B, Tk, ctx_dim) with attn2's w_k2, w_v2
+// (C, ctx_dim) and k2, v2 null. ws: 10*B*T*C (+ 2*B*Tk*C with ctx) bf16
+// workspace; stats: B*64 float32.
 extern "C" int upgpt_fused_transformer_block(
     const void* x, void* out, const void* gn_w, const void* gn_b,
     const void* w_pi, const void* b_pi, const void* ln1_w, const void* ln1_b,
@@ -355,11 +363,15 @@ extern "C" int upgpt_fused_transformer_block(
     const void* k2, const void* v2, const void* w_o2, const void* b_o2,
     const void* ln3_w, const void* ln3_b, const void* w_ff1,
     const void* b_ff1, const void* w_ff2, const void* b_ff2,
-    const void* w_po, const void* b_po, void* ws,
-    void* stats, int B, int T, int C, int heads, int Tk, float gn_eps,
-    float q_scale, void* stream_ptr) {
+    const void* w_po, const void* b_po, const void* ctx, const void* w_k2,
+    const void* w_v2, void* ws, void* stats, int B, int T, int C, int heads,
+    int Tk, int ctx_dim, float gn_eps, float q_scale, void* stream_ptr) {
   if (B <= 0 || T <= 0 || C <= 0 || C % kGroups || C > kMaxNormK ||
       heads <= 0 || C % heads || Tk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // with a context the bf16 pair loads of the projection need an even width
+  if (ctx != nullptr ? (ctx_dim <= 0 || ctx_dim % 2 || !w_k2 || !w_v2)
+                     : (!k2 || !v2))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int M = B * T;
@@ -370,9 +382,25 @@ extern "C" int upgpt_fused_transformer_block(
   bf16* qkv = h2 + mc;  // (M, 3C); later the cross q as (M, C)
   bf16* att = qkv + 3 * mc;
   bf16* ff = att + mc;  // (M, 4C)
+  bf16* kv = ff + 4 * mc;  // (B*Tk, 2C) projected cross K | V, with ctx
   float* st = static_cast<float*>(stats);
 
   auto launch = [&]() -> cudaError_t {
+    // training variant: project the context through to_k | to_v first
+    const bf16* ck = static_cast<const bf16*>(k2);
+    const bf16* cv = static_cast<const bf16*>(v2);
+    long long kv_row = C;
+    if (ctx != nullptr) {
+      GemmArgs g = product(static_cast<const bf16*>(ctx), B * Tk, ctx_dim,
+                           w_k2, 2 * C, kv);
+      g.W[1] = static_cast<const bf16*>(w_v2);
+      g.parts = 2;
+      UPGPT_TRY((gemm<kNone, false>(g, stream)));
+      ck = kv;
+      cv = kv + C;
+      kv_row = 2LL * C;
+    }
+
     // GroupNorm statistics, then proj_in with the GroupNorm-apply prologue
     gn_stats_kernel<<<dim3(kGroups, B), 256, 0, stream>>>(xin, st, T, C, gn_eps);
     UPGPT_TRY(cudaGetLastError());
@@ -399,16 +427,14 @@ extern "C" int upgpt_fused_transformer_block(
     g.residual = h;
     UPGPT_TRY((gemm<kNone, false>(g, stream)));
 
-    // cross-attention on the precomputed K/V
+    // cross-attention on the precomputed or projected K/V
     g = with_norm(product(h2, M, C, w_q2, C, qkv), ln2_w, ln2_b);
     g.q_cols = C;
     g.q_scale = q_scale;
     UPGPT_TRY((gemm<kLayerNorm, false>(g, stream)));
     UPGPT_TRY(upgpt_attention_launch(
-        packed_attention(qkv, C, static_cast<const bf16*>(k2),
-                         static_cast<const bf16*>(v2), C, att, B, heads, T, Tk,
-                         C),
-        1, stream));
+        packed_attention(qkv, C, ck, cv, kv_row, att, B, heads, T, Tk, C), 1,
+        stream));
     g = product(att, M, C, w_o2, C, h);
     g.bias = static_cast<const bf16*>(b_o2);
     g.residual = h2;

@@ -12,7 +12,11 @@ ddpm.py:1550-1577):
         "cross_kv":    optional precompute_cross_kv output,
     }
 
-`p_losses` and `training_loss` belong to the training slice.
+Training (reference ddpm.py:1083-1123): `training_loss` encodes the image
+through the frozen VAE without gradient (the JAX `stop_gradient`), samples
+the posterior, noises the latent (`q_sample`) and takes the weighted
+eps/v/x0 loss (`p_losses`). Its three random tensors are drawn by
+`training_draws` in a fixed order, or passed in explicitly.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ class LatentDiffusionConfig:
     latent_channels: int = 4
     pose_input_dim: Optional[int] = 85  # None: no pose stage
     context_dim: int = 768
+    l_simple_weight: float = 1.0
+    original_elbo_weight: float = 0.0
 
     @classmethod
     def interp_256(cls, **overrides) -> "LatentDiffusionConfig":
@@ -73,10 +79,25 @@ class LatentDiffusion(nn.Module):
 
     # ---------------- first stage ----------------
 
+    def encode_first_stage(self, x: torch.Tensor,
+                           noise: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+        """Image in [-1, 1], NHWC -> scaled posterior sample, float32, with
+        no gradient into the VAE (ddpm.py:569-576, 891-929). `noise` is the
+        posterior's standard normal draw, else drawn from `generator`."""
+        with torch.no_grad():
+            z = self.vae.encode(x.to(self.device)).sample(noise, generator)
+        return self.config.scale_factor * z
+
+    def encode_first_stage_mode(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            z = self.vae.encode(x.to(self.device)).mode()
+        return self.config.scale_factor * z
+
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latent -> float32 NHWC image in about [-1, 1]."""
-        z = z / self.config.scale_factor
-        return self.vae.decode(z.to(self.vae.post_quant_conv.weight.dtype))
+        return self.vae.decode(z / self.config.scale_factor)
 
     # ---------------- conditioning ----------------
 
@@ -133,3 +154,76 @@ class LatentDiffusion(nn.Module):
         if p == "x0":
             return (x32 - a * out32) / torch.clamp(sg, min=1e-8)
         raise NotImplementedError(p)
+
+    # ---------------- training loss ----------------
+
+    def q_sample(self, z0: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """Forward noising (reference ddpm.py:281-284)."""
+        a = self._table("sqrt_alphas_cumprod", t, z0.dim())
+        b = self._table("sqrt_one_minus_alphas_cumprod", t, z0.dim())
+        return a * z0 + b * noise
+
+    def p_losses(self, z0: torch.Tensor, cond: Dict[str, Any],
+                 t: torch.Tensor, noise: torch.Tensor,
+                 loss_w: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Weighted eps/v/x0-prediction loss (ddpm.py:1083-1123, without the
+        dead decode at 1088-1089)."""
+        cfg = self.config
+        model_out = self.apply_model(self.q_sample(z0, t, noise), t, cond)
+        if cfg.parameterization == "eps":
+            target = noise
+        elif cfg.parameterization == "v":
+            # v = alpha_t * eps - sigma_t * x0 (arXiv:2202.00512 eq. 10)
+            a = self._table("sqrt_alphas_cumprod", t, z0.dim())
+            sg = self._table("sqrt_one_minus_alphas_cumprod", t, z0.dim())
+            target = a * noise - sg * z0
+        else:
+            target = z0
+        err = (model_out.float() - target.float()).square()
+        weighted = err if loss_w is None else err * loss_w.float()
+        loss_simple = weighted.mean(dim=(1, 2, 3)).mean()
+        loss_vlb = (self._table("lvlb_weights", t, 1)
+                    * err.mean(dim=(1, 2, 3))).mean()
+        loss = (cfg.l_simple_weight * loss_simple
+                + cfg.original_elbo_weight * loss_vlb)
+        return loss, {"loss_simple": loss_simple, "loss_vlb": loss_vlb,
+                      "loss": loss}
+
+    def training_draws(self, batch_size: int,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """The random tensors of one training loss, drawn from `generator`
+        in this order: the posterior noise, t ~ U{0, ..., T-1}, then the
+        diffusion noise (both noises standard normal, latent-shaped)."""
+        cfg = self.config
+        shape = (batch_size,) + tuple(cfg.latent_size) + (cfg.vae.embed_dim,)
+        dev = self.device
+        posterior_noise = torch.randn(shape, generator=generator, device=dev)
+        t = torch.randint(0, self.schedule.num_timesteps, (batch_size,),
+                          generator=generator, device=dev)
+        noise = torch.randn(shape, generator=generator, device=dev)
+        return {"posterior_noise": posterior_noise, "t": t, "noise": noise}
+
+    def training_loss(self, batch: Dict[str, torch.Tensor],
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One training loss from a raw batch: 'image' (B, H, W, 3) in
+        [-1, 1], 'person_mask' (B, h, w, 1), 'text_emb' (B, 77, 768),
+        'style_emb' (B, 9, 768), 'smpl' (B, 1, 85), optional 'loss_w'
+        (B, h, w, 1). `draws` (from `training_draws`) overrides `generator`.
+        """
+        dev = self.device
+        get = lambda k: (None if batch.get(k) is None
+                         else batch[k].to(dev, torch.float32))
+        image = get("image")
+        if draws is None:
+            draws = self.training_draws(image.shape[0], generator)
+        z0 = self.encode_first_stage(image, noise=draws["posterior_noise"])
+        cond = {"c_crossattn": self.build_context(
+                    get("text_emb"), get("style_emb"), get("smpl")),
+                "c_concat": get("person_mask")}
+        return self.p_losses(z0, cond, draws["t"], draws["noise"],
+                             get("loss_w"))

@@ -8,13 +8,17 @@ JAX parameter tree (`down_{level}_{i}_res`, `mid_attn`, `up_{level}_upsample`,
 Numerics as in the JAX package: GroupNorm(32) statistics in float32 (eps
 1e-5 in resblocks and the out head, 1e-6 at SpatialTransformer entry),
 LayerNorm eps 1e-5, exact-erf GELU, float32 softmax, zero-initialised output
-projections, cos-first timestep embedding, compute in the parameters' dtype
-and a float32 output.
+projections, cos-first timestep embedding, compute in `UNetConfig.dtype`
+(flax semantics, see models/layers.py; None computes in the parameters'
+dtype) and a float32 output.
 
 `UNetConfig.use_fused_transformer` routes the SpatialTransformers that
 `fused_transformer_qualifies` admits (ds1 and ds2 of the 256px nets) to the
 CUDA block kernel; `use_flash_attention` lets long self-attention in the
-plain twin use the flash kernel.
+plain twin (and in the kernel's recompute backward) use the flash kernels;
+`use_fused_groupnorm` routes every ResBlock GroupNorm+SiLU and the out head
+to the one-pass GroupNorm kernel where `fused_group_norm_qualifies` (the
+JAX ResBlock's fused level 1).
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ from torch import nn
 from upgpt_torch.models.layers import Conv2d, Dense, Norm
 from upgpt_torch.ops.basic import (
     group_norm, nearest_upsample_2x, silu, timestep_embedding,
+)
+from upgpt_torch.ops.fused_gn import (
+    fused_group_norm, fused_group_norm_qualifies,
 )
 from upgpt_torch.ops.fused_transformer import (
     fused_transformer_block, fused_transformer_qualifies, param_tree,
@@ -48,36 +55,62 @@ class UNetConfig:
     transformer_depth: int = 1
     context_dim: Optional[int] = 768
     use_flash_attention: bool = True
+    # the CUDA GroupNorm+SiLU kernel (ops/fused_gn.py), per qualifying shape
+    use_fused_groupnorm: bool = False
     # the CUDA SpatialTransformer kernel (ops/fused_transformer.py), per
     # qualifying shape
     use_fused_transformer: bool = False
+    dtype: Optional[torch.dtype] = None  # compute dtype; None: the params'
 
     @classmethod
     def interp_256(cls, **overrides) -> "UNetConfig":
         return dataclasses.replace(cls(), **overrides)
 
 
+def group_norm_silu(x: torch.Tensor, norm: Norm, fused: bool,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm(32) then SiLU, through the one-pass kernel when `fused` and
+    the shape qualifies."""
+    if fused and fused_group_norm_qualifies(x.shape, 32):
+        return fused_group_norm(x, norm.weight, norm.bias, 32, eps, True)
+    return silu(group_norm(x, norm.weight, norm.bias, 32, eps))
+
+
+class GroupNorm32(Norm):
+    """GroupNorm(32), eps 1e-5, float32 statistics, then SiLU: the U-Net's
+    out head (JAX GroupNorm32(with_silu=True, fused=...))."""
+
+    def __init__(self, channels: int, fused: bool = False):
+        super().__init__(channels)
+        self.fused = fused
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_silu(x, self, self.fused)
+
+
 class ResBlock(nn.Module):
     """GN->SiLU->conv, + timestep projection, GN->SiLU->zero-conv, residual
-    (reference openaimodel.py:163-275, additive-embedding path)."""
+    (reference openaimodel.py:163-275, additive-embedding path). `fused_gn`
+    is the JAX ResBlock's fused level 1: both GN+SiLU through the kernel."""
 
-    def __init__(self, in_channels: int, out_channels: int, emb_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
+                 dtype=None, fused_gn: bool = False):
         super().__init__()
+        self.fused_gn = fused_gn
         self.norm_in = Norm(in_channels)
-        self.conv_in = Conv2d(in_channels, out_channels, 3, padding=1)
-        self.emb_proj = Dense(emb_channels, out_channels)
+        self.conv_in = Conv2d(in_channels, out_channels, 3, padding=1,
+                              dtype=dtype)
+        self.emb_proj = Dense(emb_channels, out_channels, dtype=dtype)
         self.norm_out = Norm(out_channels)
         self.conv_out = Conv2d(out_channels, out_channels, 3, padding=1,
-                               zero_init=True)
-        self.skip = (Conv2d(in_channels, out_channels, 1)
+                               zero_init=True, dtype=dtype)
+        self.skip = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                      if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = group_norm(x, self.norm_in.weight, self.norm_in.bias, 32, 1e-5)
-        h = self.conv_in(silu(h))
+        h = self.conv_in(group_norm_silu(x, self.norm_in, self.fused_gn))
         h = h + self.emb_proj(silu(emb))[:, None, None, :].to(h.dtype)
-        h = group_norm(h, self.norm_out.weight, self.norm_out.bias, 32, 1e-5)
-        h = self.conv_out(silu(h))
+        h = self.conv_out(group_norm_silu(h, self.norm_out, self.fused_gn))
         if self.skip is not None:
             x = self.skip(x)
         return x + h.to(x.dtype)
@@ -121,18 +154,21 @@ class SpatialTransformer(nn.Module):
     """GN(1e-6) -> proj_in -> transformer block(s) -> zero proj_out + res.
 
     Dispatches the whole block to `fused_transformer_block` when `fused`
-    and the shape qualifies, else runs `transformer_block_reference`.
+    and the shape qualifies, else runs `transformer_block_reference`. Both
+    take the parameter tree cast to the compute dtype, made per call (a
+    no-op where the parameters already have that dtype).
     """
 
     def __init__(self, channels: int, num_heads: int, head_dim: int,
                  depth: int = 1, context_dim: Optional[int] = None,
-                 use_flash: bool = False, fused: bool = False):
+                 use_flash: bool = False, fused: bool = False, dtype=None):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads = num_heads
         self.depth = depth
         self.use_flash = use_flash
         self.fused = fused
+        self.compute_dtype = dtype
         self.norm = Norm(channels)
         self.proj_in = Dense(channels, inner)
         self.proj_out = Dense(inner, channels, zero_init=True)
@@ -154,11 +190,11 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context=None, kv=None) -> torch.Tensor:
         b, h, w, c = x.shape
-        comp = self.proj_in.weight.dtype
+        comp = self.compute_dtype or self.proj_in.weight.dtype
         inner = self.proj_in.weight.shape[0]
         if self._tree is None:
             self._tree = param_tree(self)
-        p = self._tree
+        p = _cast_tree(self._tree, comp)
         tokens = x.reshape(b, h * w, c).to(comp)
         ctx = None if context is None else context.to(comp)
         kv0 = None if kv is None else kv.get("block_0")
@@ -175,12 +211,18 @@ class SpatialTransformer(nn.Module):
         return out.reshape(b, h, w, c)
 
 
+def _cast_tree(tree, dtype):
+    return {k: _cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
 class Downsample(nn.Module):
     """3x3 stride-2 conv, padding 1 (reference openaimodel.py:134-160)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype=None):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1,
+                           dtype=dtype)
 
     def forward(self, x):
         return self.conv(x)
@@ -189,9 +231,9 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """2x nearest + 3x3 conv (reference openaimodel.py:91-119)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype=None):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x):
         return self.conv(nearest_upsample_2x(x))
@@ -207,10 +249,10 @@ class UNetModel(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
         cfg = self.config = config
-        mc = cfg.model_channels
-        self.time_embed_0 = Dense(mc, 4 * mc)
-        self.time_embed_2 = Dense(4 * mc, 4 * mc)
-        self.conv_in = Conv2d(cfg.in_channels, mc, 3, padding=1)
+        mc, comp = cfg.model_channels, cfg.dtype
+        self.time_embed_0 = Dense(mc, 4 * mc, dtype=comp)
+        self.time_embed_2 = Dense(4 * mc, 4 * mc, dtype=comp)
+        self.conv_in = Conv2d(cfg.in_channels, mc, 3, padding=1, dtype=comp)
         self._plan = []  # (kind, module name) in call order
 
         def attn(ch, name):
@@ -218,11 +260,12 @@ class UNetModel(nn.Module):
                 ch, cfg.num_heads, ch // cfg.num_heads,
                 depth=cfg.transformer_depth, context_dim=cfg.context_dim,
                 use_flash=cfg.use_flash_attention,
-                fused=cfg.use_fused_transformer))
+                fused=cfg.use_fused_transformer, dtype=comp))
             self._plan.append(("attn", name))
 
         def res(cin, cout, name):
-            self.add_module(name, ResBlock(cin, cout, 4 * mc))
+            self.add_module(name, ResBlock(cin, cout, 4 * mc, comp,
+                                           cfg.use_fused_groupnorm))
             self._plan.append(("res", name))
 
         skips = [mc]
@@ -237,7 +280,7 @@ class UNetModel(nn.Module):
                 self._plan.append(("push", None))
             if level != len(cfg.channel_mult) - 1:
                 name = f"down_{level}_downsample"
-                self.add_module(name, Downsample(ch))
+                self.add_module(name, Downsample(ch, comp))
                 self._plan += [("call", name), ("push", None)]
                 skips.append(ch)
                 ds *= 2
@@ -253,18 +296,22 @@ class UNetModel(nn.Module):
                     attn(ch, f"up_{level}_{i}_attn")
                 if level and i == cfg.num_res_blocks:
                     name = f"up_{level}_upsample"
-                    self.add_module(name, Upsample(ch))
+                    self.add_module(name, Upsample(ch, comp))
                     self._plan.append(("call", name))
                     ds //= 2
-        self.out_norm = Norm(ch)
+        self.out_norm = GroupNorm32(ch, cfg.use_fused_groupnorm)
         self.out_conv = Conv2d(ch, cfg.out_channels, 3, padding=1,
-                               zero_init=True)
+                               zero_init=True, dtype=comp)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.config.dtype or self.conv_in.weight.dtype
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 cross_kv: Optional[Dict] = None) -> torch.Tensor:
         cfg = self.config
-        comp = self.conv_in.weight.dtype
+        comp = self.compute_dtype
         emb = self.time_embed_0(
             timestep_embedding(timesteps, cfg.model_channels).to(comp))
         emb = self.time_embed_2(silu(emb))
@@ -284,8 +331,7 @@ class UNetModel(nn.Module):
                 hs.append(h)
             else:  # pop: skip concat on the channel axis
                 h = torch.cat([h, hs.pop()], dim=-1)
-        h = group_norm(h, self.out_norm.weight, self.out_norm.bias, 32, 1e-5)
-        return self.out_conv(silu(h)).float()
+        return self.out_conv(self.out_norm(h)).float()
 
 
 def cross_attention_layers(cfg: UNetConfig):
@@ -319,7 +365,7 @@ def precompute_cross_kv(unet: UNetModel, context: torch.Tensor) -> Dict:
     These two products stay torch.matmul: the JAX package computes them
     outside any kernel too.
     """
-    comp = unet.conv_in.weight.dtype
+    comp = unet.compute_dtype
     ctx = context.to(comp)
     out = {}
     for name, _ch in cross_attention_layers(unet.config):
@@ -327,7 +373,7 @@ def precompute_cross_kv(unet: UNetModel, context: torch.Tensor) -> Dict:
         blocks = {}
         for d in range(unet.config.transformer_depth):
             a2 = getattr(layer, f"block_{d}").attn2
-            blocks[f"block_{d}"] = (F.linear(ctx, a2.to_k.weight),
-                                    F.linear(ctx, a2.to_v.weight))
+            blocks[f"block_{d}"] = (F.linear(ctx, a2.to_k.weight.to(comp)),
+                                    F.linear(ctx, a2.to_v.weight.to(comp)))
         out[name] = blocks
     return out

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every `upgpt_torch/csrc/*.cu` is compiled by one nvcc call into one shared
-library with a plain C interface, loaded with ctypes at first use:
+Every `upgpt_torch/csrc/*.cu` is compiled by its own nvcc process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ctypes at first use:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libupgpt_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      (one per source)
+    nvcc -shared -o libupgpt_kernels.so *.o
 
 The library lands in `upgpt_torch/_build/<hash>/`, keyed by a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the
@@ -33,7 +35,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -42,6 +44,12 @@ F = ctypes.c_float
 # C signatures: name -> argtypes; every entry point returns cudaError_t (int)
 SIGNATURES = {
     "upgpt_flash_attention": [P, P, P, P, I, I, I, I, I, P],
+    # q, k, v, o, dout, dq, lse, di, B, H, T, D, is_bf16, stream
+    "upgpt_flash_backward_dq": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # q, k, v, dout, lse, di, dk, dv, B, H, T, D, is_bf16, stream
+    "upgpt_flash_backward_dkv": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # x, scale, shift, out, N, HW, C, G, eps, with_silu, is_bf16, stream
+    "upgpt_fused_group_norm": [P, P, P, P, I, I, I, I, F, I, I, P],
     "upgpt_fused_transformer_block": (
         [P, P]                      # x, out
         + [P, P, P, P]              # gn w/b, proj_in w/b
@@ -49,8 +57,10 @@ SIGNATURES = {
         + [P, P, P, P, P, P, P]     # ln2 w/b, to_q2, k, v, to_out2 w/b
         + [P, P, P, P, P, P]        # ln3 w/b, ff1 w/b, ff2 w/b
         + [P, P]                    # proj_out w/b
+        + [P, P, P]                 # context, attn2 to_k, to_v (or nulls)
         + [P, P]                    # bf16 workspace, fp32 stats
-        + [I, I, I, I, I, F, F, P]  # B, T, C, heads, Tk, gn_eps, q_scale, stream
+        + [I, I, I, I, I, I]        # B, T, C, heads, Tk, ctx_dim
+        + [F, F, P]                 # gn_eps, q_scale, stream
     ),
 }
 
@@ -89,17 +99,36 @@ def _digest(sources) -> str:
 
 
 def _compile(out: Path, cu_files) -> None:
+    """One nvcc per source, all at once, then one link into `out`."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu_files)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    work = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        nvcc = _nvcc()
+        jobs = []
+        for src in cu_files:
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}): "
+                              f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = work / out.name
+        cmd = [nvcc, "-shared", "-o", str(lib), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {proc.returncode}): {' '.join(cmd)}"
+                f"\n{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def library() -> ctypes.CDLL:

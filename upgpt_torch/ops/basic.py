@@ -7,6 +7,8 @@ Port of `upgpt_tpu.ops.basic`:
 - `timestep_embedding`: the U-Net's cos-first sinusoid (util.py:151-171).
 - `silu`: x * sigmoid(x) (util.py:209-211).
 - `nearest_upsample_2x`: F.interpolate(scale_factor=2, mode="nearest").
+- `asymmetric_pad_hw`: the VAE downsample's (0, 1, 0, 1) zero pad
+  (model.py:60-79).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -64,3 +67,8 @@ def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
     return x.reshape(n, h * 2, w * 2, c)
+
+
+def asymmetric_pad_hw(x: torch.Tensor) -> torch.Tensor:
+    """Pad NHWC with (top 0, bottom 1, left 0, right 1) zeros."""
+    return F.pad(x, (0, 0, 0, 1, 0, 1))

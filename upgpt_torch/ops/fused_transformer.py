@@ -12,14 +12,24 @@ a bf16 residual stream rounded after every sub-block. The kernel is
 this card the block is eleven launches from one C call: GroupNorm
 statistics, seven tiled tensor-core products with norm prologues and
 bias/scale/residual/GEGLU epilogues, and two passes of the shared attention
-routine over the packed activations. Only the sampling variant with
-precomputed cross-attention K/V (`precompute_cross_kv`) is ported; the
-in-kernel context projection of the training path raises on CUDA.
+routine over the packed activations. Both variants are ported: cross K/V
+precomputed by the sampler (`precompute_cross_kv`), and the training
+variant (`kv=None`), where the same call first projects the context through
+attn2's `to_k` and `to_v` (a twelfth launch).
+
+`fused_transformer_block` is an autograd.Function, as the JAX function is a
+custom_vjp: the forward is the kernel (its twin for CPU tensors), and the
+backward recomputes `transformer_block_reference` under autograd and returns
+gradients for the tokens, every parameter and the context (or K/V). With
+`use_flash` the recompute's long self-attention goes through the flash
+kernels, forward and backward (`ops/flash_attention.py`).
 
 `p` is the SpatialTransformer's parameter tree with the JAX package's keys
 (`norm`, `proj_in`, `proj_out`, `block_0/{attn1,attn2,ff,norm1..3}`) and
 nn.Linear-layout leaves (`weight` (out, in), `bias`), as `param_tree` builds
-it from a module.
+it from a module. The kernel takes every leaf in bf16; a caller training
+float32 masters passes their bf16 casts, and the gradients reach the masters
+through the casts.
 """
 
 from __future__ import annotations
@@ -143,6 +153,50 @@ def transformer_block_reference(
 _MAX_NORM_WIDTH = 512  # csrc: norm prologues stage one row's scale/shift
 _MAX_TOKENS = 1024     # keeps the attention score tile at <= 64 KB a block
 
+# the tree's leaves in the order the autograd.Function takes them
+_LEAVES = (
+    ("norm", "weight"), ("norm", "bias"),
+    ("proj_in", "weight"), ("proj_in", "bias"),
+    ("block_0", "norm1", "weight"), ("block_0", "norm1", "bias"),
+    ("block_0", "attn1", "to_q", "weight"),
+    ("block_0", "attn1", "to_k", "weight"),
+    ("block_0", "attn1", "to_v", "weight"),
+    ("block_0", "attn1", "to_out", "weight"),
+    ("block_0", "attn1", "to_out", "bias"),
+    ("block_0", "norm2", "weight"), ("block_0", "norm2", "bias"),
+    ("block_0", "attn2", "to_q", "weight"),
+    ("block_0", "attn2", "to_k", "weight"),
+    ("block_0", "attn2", "to_v", "weight"),
+    ("block_0", "attn2", "to_out", "weight"),
+    ("block_0", "attn2", "to_out", "bias"),
+    ("block_0", "norm3", "weight"), ("block_0", "norm3", "bias"),
+    ("block_0", "ff", "proj_in", "weight"),
+    ("block_0", "ff", "proj_in", "bias"),
+    ("block_0", "ff", "proj_out", "weight"),
+    ("block_0", "ff", "proj_out", "bias"),
+    ("proj_out", "weight"), ("proj_out", "bias"),
+)
+
+
+def _flatten(p: Tree):
+    out = []
+    for path in _LEAVES:
+        node = p
+        for key in path:
+            node = node[key]
+        out.append(node)
+    return out
+
+
+def _unflatten(leaves) -> Dict:
+    tree: Dict = {}
+    for path, leaf in zip(_LEAVES, leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
 
 def fused_transformer_qualifies(t: int, c: int, heads: int, tk: int,
                                 depth: int = 1) -> bool:
@@ -153,10 +207,9 @@ def fused_transformer_qualifies(t: int, c: int, heads: int, tk: int,
     attention pass keeps a (16 x T) float32 score tile per block
     (T <= 1024 keeps it at 64 KB, two blocks per SM). ds1 (768, 224) and
     ds2 (192, 448) of the 256px nets qualify; the 896-channel ds4 and mid
-    levels do not. The gate is about shape alone, as the JAX one is: a
-    qualifying block given a context and no K/V reaches
-    `fused_transformer_block`, which raises on CUDA for that unported
-    variant.
+    levels do not. The gate is about shape alone, as the JAX one is, and
+    holds for both variants: the context projection is one more product,
+    whose width the kernel does not stage.
     """
     if depth != 1 or tk < 1:
         return False
@@ -165,39 +218,50 @@ def fused_transformer_qualifies(t: int, c: int, heads: int, tk: int,
     return t <= _MAX_TOKENS and c <= _MAX_NORM_WIDTH
 
 
-def _launch(x: torch.Tensor, p: Tree, heads: int, kv, gn_eps: float):
+def _launch(x: torch.Tensor, p: Tree, heads: int, context, kv,
+            gn_eps: float) -> torch.Tensor:
     b, t, c = x.shape
-    k, v = kv
-    tk = k.shape[1]
+    blk = p["block_0"]
+    a1, a2, ff = blk["attn1"], blk["attn2"], blk["ff"]
+    if kv is not None:
+        k, v = kv
+        tk, ctx_dim = k.shape[1], 0
+        ctx = wk2 = wv2 = None
+    else:
+        tk, ctx_dim = context.shape[1], context.shape[-1]
+        k = v = None
+        ctx, wk2, wv2 = context, a2["to_k"]["weight"], a2["to_v"]["weight"]
+        if ctx_dim % 2:
+            raise ValueError(f"fused transformer kernel takes an even "
+                             f"context width, got {ctx_dim}")
     if not fused_transformer_qualifies(t, c, heads, tk):
         raise ValueError(
             f"fused transformer kernel does not take T={t}, C={c}, "
             f"heads={heads}, Tk={tk}")
-    if k.shape != (b, tk, c) or v.shape != (b, tk, c):
-        raise ValueError(f"cross K/V must be ({b}, Tk, {c}), got "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    blk = p["block_0"]
-    a1, a2, ff = blk["attn1"], blk["attn2"], blk["ff"]
+    sq, vec = (c, c), (c,)
+    # the C entry point's tensor arguments in order, with their shapes;
+    # None for the variant's absent inputs
     args = [
-        p["norm"]["weight"], p["norm"]["bias"],
-        p["proj_in"]["weight"], p["proj_in"]["bias"],
-        blk["norm1"]["weight"], blk["norm1"]["bias"],
-        a1["to_q"]["weight"], a1["to_k"]["weight"], a1["to_v"]["weight"],
-        a1["to_out"]["weight"], a1["to_out"]["bias"],
-        blk["norm2"]["weight"], blk["norm2"]["bias"],
-        a2["to_q"]["weight"], k, v,
-        a2["to_out"]["weight"], a2["to_out"]["bias"],
-        blk["norm3"]["weight"], blk["norm3"]["bias"],
-        ff["proj_in"]["weight"], ff["proj_in"]["bias"],
-        ff["proj_out"]["weight"], ff["proj_out"]["bias"],
-        p["proj_out"]["weight"], p["proj_out"]["bias"],
+        (x, (b, t, c)),
+        (p["norm"]["weight"], vec), (p["norm"]["bias"], vec),
+        (p["proj_in"]["weight"], sq), (p["proj_in"]["bias"], vec),
+        (blk["norm1"]["weight"], vec), (blk["norm1"]["bias"], vec),
+        (a1["to_q"]["weight"], sq), (a1["to_k"]["weight"], sq),
+        (a1["to_v"]["weight"], sq),
+        (a1["to_out"]["weight"], sq), (a1["to_out"]["bias"], vec),
+        (blk["norm2"]["weight"], vec), (blk["norm2"]["bias"], vec),
+        (a2["to_q"]["weight"], sq), (k, (b, tk, c)), (v, (b, tk, c)),
+        (a2["to_out"]["weight"], sq), (a2["to_out"]["bias"], vec),
+        (blk["norm3"]["weight"], vec), (blk["norm3"]["bias"], vec),
+        (ff["proj_in"]["weight"], (8 * c, c)),
+        (ff["proj_in"]["bias"], (8 * c,)),
+        (ff["proj_out"]["weight"], (c, 4 * c)), (ff["proj_out"]["bias"], vec),
+        (p["proj_out"]["weight"], sq), (p["proj_out"]["bias"], vec),
+        (ctx, (b, tk, ctx_dim)), (wk2, (c, ctx_dim)), (wv2, (c, ctx_dim)),
     ]
-    expect = [(c,), (c,), (c, c), (c,),
-              (c,), (c,), (c, c), (c, c), (c, c), (c, c), (c,),
-              (c,), (c,), (c, c), (b, tk, c), (b, tk, c), (c, c), (c,),
-              (c,), (c,), (8 * c, c), (8 * c,), (c, 4 * c), (c,),
-              (c, c), (c,)]
-    for i, (a, shape) in enumerate(zip([x] + args, [(b, t, c)] + expect)):
+    for i, (a, shape) in enumerate(args):
+        if a is None:
+            continue
         if tuple(a.shape) != shape:
             raise ValueError(f"fused transformer argument {i}: shape "
                              f"{tuple(a.shape)}, expected {shape}")
@@ -207,21 +271,54 @@ def _launch(x: torch.Tensor, p: Tree, heads: int, kv, gn_eps: float):
         if a.device != x.device or not a.is_contiguous():
             raise ValueError(f"fused transformer argument {i} must be a "
                              f"contiguous tensor on {x.device}")
-        if a.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "fused transformer backward: training slice")
+    ptrs = [None if a is None else a.data_ptr() for a, _ in args]
     out = torch.empty_like(x)
-    ws = torch.empty(10 * b * t * c, dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty(10 * b * t * c + (2 * b * tk * c if kv is None else 0),
+                     dtype=torch.bfloat16, device=x.device)
     stats = torch.empty(b * 64, dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    code = lib.upgpt_fused_transformer_block(
-        x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in args),
-        ws.data_ptr(), stats.data_ptr(), b, t, c, heads, tk, gn_eps,
-        1.0 / math.sqrt(c // heads),
+    code = _build.library().upgpt_fused_transformer_block(
+        ptrs[0], out.data_ptr(), *ptrs[1:], ws.data_ptr(), stats.data_ptr(),
+        b, t, c, heads, tk, ctx_dim, gn_eps, 1.0 / math.sqrt(c // heads),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "fused_transformer_block")
     fused_transformer_block.launches += 1
     return out
+
+
+class _FusedBlock(torch.autograd.Function):
+    """Forward: the kernel (the twin on CPU tensors). Backward: recompute
+    the twin under autograd, as `_fused_bwd` does with jax.vjp."""
+
+    @staticmethod
+    def forward(ctx, x, context, k, v, heads, gn_eps, use_flash, *leaves):
+        kv = None if k is None else (k, v)
+        if x.device.type == "cpu":
+            out = transformer_block_reference(
+                x, _unflatten(leaves), heads, context, kv, gn_eps, use_flash)
+        else:
+            out = _launch(x, _unflatten(leaves), heads, context, kv, gn_eps)
+        ctx.save_for_backward(x, context, k, v, *leaves)
+        ctx.config = (heads, gn_eps, use_flash)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        heads, gn_eps, use_flash = ctx.config
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:4] + ctx.needs_input_grad[7:]
+        with torch.enable_grad():
+            inputs = [None if a is None else a.detach().requires_grad_(n)
+                      for a, n in zip(saved, needs)]
+            x, context, k, v, *leaves = inputs
+            out = transformer_block_reference(
+                x, _unflatten(leaves), heads, context,
+                None if k is None else (k, v), gn_eps, use_flash)
+            wanted = [a for a, n in zip(inputs, needs) if a is not None and n]
+            grads = iter(torch.autograd.grad(out, wanted, grad,
+                                             allow_unused=True))
+        out_grads = [next(grads) if a is not None and n else None
+                     for a, n in zip(inputs, needs)]
+        return (*out_grads[:4], None, None, None, *out_grads[4:])
 
 
 def fused_transformer_block(x_tokens: torch.Tensor, p: Tree, heads: int,
@@ -230,21 +327,19 @@ def fused_transformer_block(x_tokens: torch.Tensor, p: Tree, heads: int,
                             use_flash: bool = False) -> torch.Tensor:
     """(B, T, C) tokens -> (B, T, C): the whole SpatialTransformer block.
 
-    `kv` is the precomputed packed cross (k, v) pair, each (B, Tk, C).
-    A CPU tensor takes `transformer_block_reference`; a CUDA tensor
-    launches the kernel, which takes bf16 only.
+    `kv` is the precomputed packed cross (k, v) pair, each (B, Tk, C);
+    without it the block projects `context` (B, Tk, Cd) itself. A CPU
+    tensor takes `transformer_block_reference`; a CUDA tensor launches the
+    kernel, which takes bf16 only. Differentiable in every tensor input.
     """
-    if x_tokens.device.type == "cpu":
-        return transformer_block_reference(x_tokens, p, heads, context, kv,
-                                           gn_eps, use_flash)
-    if x_tokens.device.type != "cuda":
+    if x_tokens.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_transformer_block: unsupported device "
                          f"{x_tokens.device}")
-    if kv is None:
-        raise NotImplementedError(
-            "fused transformer block with the context projected in-kernel "
-            "(kv=None): training slice")
-    return _launch(x_tokens, p, heads, kv, gn_eps)
+    if kv is None and context is None:
+        raise ValueError("fused_transformer_block needs a context or K/V")
+    k, v = (None, None) if kv is None else kv
+    return _FusedBlock.apply(x_tokens, context if kv is None else None, k, v,
+                             heads, gn_eps, use_flash, *_flatten(p))
 
 
 fused_transformer_block.launches = 0  # kernel launches since the last reset

@@ -8,12 +8,24 @@ Port of `upgpt_tpu.zoo` for the 256px variants and the CI geometry:
 | interp_256 | 32x24x4 | bbox mask 1ch | same               | kl-f8       |
 | tiny       | 32x24x4 | mask 1ch      | same               | tiny kl-f8  |
 
-The kernel switches are on by default, as the JAX package's sampling
-benchmark configures the same program: `use_fused_transformer` routes the
-qualifying SpatialTransformers to the CUDA block kernel and
+`dtype` is the compute dtype and `param_dtype` the parameters' (flax's
+`dtype` and `param_dtype`; by default the same). The sampling path keeps
+both bf16; training keeps float32 masters under bf16 compute:
+
+    build_latent_diffusion("interp_256", dtype="bfloat16",
+                           param_dtype="float32", use_fused_groupnorm=True)
+
+The kernel switches mirror the JAX configs. `use_fused_transformer` routes
+the qualifying SpatialTransformers to the CUDA block kernel,
 `use_flash_attention` lets long self-attention (U-Net and the VAE's mid
-AttnBlock) use the flash kernel. On CPU tensors both run their plain
-versions.
+AttnBlock) use the flash kernels, and `use_fused_groupnorm` routes the
+U-Net's GroupNorm+SiLU to the one-pass kernel. The first two are on by
+default, as the sampling benchmark configures them; fused GroupNorm is off,
+as it is in sampling, and on in the training benchmark. On CPU tensors every
+kernel runs its plain version.
+
+The model is built on the CUDA card unless the caller asks for another
+device; without a card that raises.
 """
 
 from __future__ import annotations
@@ -32,27 +44,28 @@ from upgpt_torch.models.vae import AutoencoderConfig
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _unet_256(flash: bool, fused: bool) -> UNetConfig:
+def _unet_256(comp, kernels) -> UNetConfig:
     # models/upgpt/interp_256/config.yaml:40-55
     return UNetConfig(
         in_channels=5, model_channels=224, out_channels=4, num_res_blocks=2,
         attention_resolutions=(4, 2, 1), channel_mult=(1, 2, 4, 4),
-        num_heads=8, transformer_depth=1, context_dim=768,
-        use_flash_attention=flash, use_fused_transformer=fused)
+        num_heads=8, transformer_depth=1, context_dim=768, dtype=comp,
+        **kernels)
 
 
-def _pt_256(flash: bool, fused: bool) -> LatentDiffusionConfig:
+def _pt_256(comp, kernels) -> LatentDiffusionConfig:
     return LatentDiffusionConfig(
-        unet=_unet_256(flash, fused),
-        vae=AutoencoderConfig.kl_f8(use_flash_attention=flash),
+        unet=_unet_256(comp, kernels),
+        vae=AutoencoderConfig.kl_f8(
+            dtype=comp, use_flash_attention=kernels["use_flash_attention"]),
         latent_size=(32, 24), latent_channels=4)
 
 
-def _interp_256(flash: bool, fused: bool) -> LatentDiffusionConfig:
-    return _pt_256(flash, fused)  # same graph; loss weights are data-side
+def _interp_256(comp, kernels) -> LatentDiffusionConfig:
+    return _pt_256(comp, kernels)  # same graph; loss weights are data-side
 
 
-def _tiny(flash: bool, fused: bool) -> LatentDiffusionConfig:
+def _tiny(comp, kernels) -> LatentDiffusionConfig:
     """Miniature CI geometry (upgpt_tpu/zoo.py `tiny`): the full topology —
     hybrid concat, 87-token context, pose stage — at a fraction of the
     compute."""
@@ -60,31 +73,48 @@ def _tiny(flash: bool, fused: bool) -> LatentDiffusionConfig:
         unet=UNetConfig(
             in_channels=5, model_channels=32, out_channels=4,
             num_res_blocks=1, attention_resolutions=(1, 2),
-            channel_mult=(1, 2), num_heads=4, context_dim=768,
-            use_flash_attention=flash, use_fused_transformer=fused),
+            channel_mult=(1, 2), num_heads=4, context_dim=768, dtype=comp,
+            **kernels),
         vae=AutoencoderConfig(
             embed_dim=4, z_channels=4, ch=32, ch_mult=(1, 2),
-            num_res_blocks=1, resolution=64, use_flash_attention=flash),
+            num_res_blocks=1, resolution=64, dtype=comp,
+            use_flash_attention=kernels["use_flash_attention"]),
         timesteps=1000, latent_size=(32, 24), latent_channels=4)
 
 
 _BUILDERS = {"pt_256": _pt_256, "interp_256": _interp_256, "tiny": _tiny}
 
 
+def _dtype(d: Union[str, torch.dtype]) -> torch.dtype:
+    return _DTYPES[d] if isinstance(d, str) else d
+
+
 def build_latent_diffusion(
     variant: str = "interp_256",
     dtype: Union[str, torch.dtype] = "float32",
-    device: Optional[Union[str, torch.device]] = None,
+    param_dtype: Optional[Union[str, torch.dtype]] = None,
+    device: Union[str, torch.device] = "cuda",
     use_flash_attention: bool = True,
     use_fused_transformer: bool = True,
+    use_fused_groupnorm: bool = False,
     **overrides,
 ) -> LatentDiffusion:
-    """Build a variant with freshly initialised weights, cast to `dtype`
-    and moved to `device` (CPU when None)."""
+    """Build a variant with freshly initialised weights in `param_dtype`
+    (default: `dtype`), computing in `dtype`, on `device` (the CUDA card
+    unless the caller names another device)."""
     if variant not in _BUILDERS:
         raise KeyError(f"unknown variant {variant!r}; have {list(_BUILDERS)}")
-    comp = _DTYPES[dtype] if isinstance(dtype, str) else dtype
-    cfg = _BUILDERS[variant](use_flash_attention, use_fused_transformer)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_latent_diffusion: no CUDA card is available; the port "
+            "builds on the card unless device='cpu' is given")
+    comp = _dtype(dtype)
+    kernels = {"use_flash_attention": use_flash_attention,
+               "use_fused_transformer": use_fused_transformer,
+               "use_fused_groupnorm": use_fused_groupnorm}
+    cfg = _BUILDERS[variant](comp, kernels)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    return LatentDiffusion(cfg).to(device=device, dtype=comp).eval()
+    return LatentDiffusion(cfg).to(
+        device=device, dtype=_dtype(param_dtype or dtype)).eval()
