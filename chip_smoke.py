@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's sampling and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's sampling, training and 256->512 chain paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,10 +9,10 @@ CUDA toolkit. It
 1. builds the port's CUDA kernels from `upgpt_torch/csrc` (one nvcc per
    source, in parallel, sm_90a);
 2. holds each kernel against its plain PyTorch version in bf16 at the
-   shapes the two paths below give it (sampling at batch 8, training at
-   batch 12), and times the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call (`library_ms`, a
-   yardstick the port never calls);
+   shapes the three paths below give it (sampling at batch 8, training at
+   batch 12, the chain at batch 4), and times the kernel, the plain version
+   and, where one PyTorch call computes the same function, that call
+   (`library_ms`, a yardstick the port never calls);
 3. sampling: builds interp_256 at full width in bf16 with every parameter
    re-drawn from a seeded generator (std 1/sqrt(fan_in), nothing left at
    zero), checks the kernel path against the plain path end to end (one
@@ -25,7 +26,15 @@ CUDA toolkit. It
    draws at batch 2, then runs the train step at batch 12: one warm-up and
    five timed steps, counting kernel launches per step against the counts
    the model's structure gives;
-5. prints a JSON line of per-kernel results, the card's name and power
+5. the chain: builds interp_256 and upscale at full width in bf16 with
+   every GroupNorm kernel switch on (fused ResBlock half-steps, the out
+   head's GroupNorm, the VAEs' GroupNorm) and re-drawn weights, checks the
+   kernel path against the plain path (all switches off) on one upscale
+   U-Net eval and on the 512x384 image of a 4-step eta-0 chain at batch 2,
+   then runs DDIM-50 eta 1 through both stages at batch 4 to uint8
+   (4, 512, 384, 3): one warm-up and two timed runs, counting kernel
+   launches against the counts the two models' structure gives;
+6. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -71,9 +80,20 @@ TRAIN_LOSS_REL = 5e-4
 TRAIN_GRAD_REL_L2 = 5e-2
 TRAIN_PARAM_REL_L2 = 5e-5
 TRAIN_UPDATE_REL_L2 = 0.5
+# The chain end to end, kernel path vs plain path on the same weights:
+# relative L2 of one upscale U-Net eval and of the 512x384 image after a
+# 4-step eta-0 chain at batch 2. Both paths compute in bf16 and round at
+# different places (the half-step kernel keeps the normalised activation in
+# float32 until one bf16 rounding; K6's statistics sum in another order).
+# Measured on an H100 (700 W): 1.637e-2 (eps) and 1.233e-2 (image), so each
+# bound has a margin of 3x or more.
+CHAIN_EPS_REL_L2 = 5e-2
+CHAIN_IMAGE_REL_L2 = 5e-2
 BATCH, STEPS, TIMED_RUNS = 8, 50, 3
 TRAIN_BATCH, TRAIN_STEPS, LEARNING_RATE = 12, 5, 2e-6
+CHAIN_BATCH, CHAIN_TIMED_RUNS = 4, 2
 CONTEXT_TOKENS = 87  # 77 text + 9 style + 1 pose
+UP_CONTEXT_TOKENS = 86  # the upscale stage has no pose token
 # NVIDIA H100 SXM peaks (data sheet, dense): bf16 tensor cores, float32
 # outside them, device memory
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -189,20 +209,20 @@ def kernel_checks(dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(*s, generator=g, device=dev)
-    cases = {k: [] for k in ("fused_transformer_block", "flash_attention",
-                             "flash_backward_dq", "flash_backward_dkv",
-                             "fused_group_norm")}
+    cases = {k: [] for k, _, _ in KERNELS}
     with torch.no_grad():
         # K1, ds1 and ds2: precomputed K/V at the sampling batch, the
-        # context projected in-kernel at the training batch
+        # context projected in-kernel at the training batch; the upscale
+        # net's ds4 (C 512, dh 64) with its 86-token K/V at the chain batch
         for b, t, c, variant in [(BATCH, 768, 224, "kv"),
                                  (BATCH, 192, 448, "kv"),
                                  (TRAIN_BATCH, 768, 224, "ctx"),
-                                 (TRAIN_BATCH, 192, 448, "ctx")]:
+                                 (TRAIN_BATCH, 192, 448, "ctx"),
+                                 (CHAIN_BATCH, 768, 512, "chain")]:
             p = _random_block(c, 768, g)
             x = randn(b, t, c).bfloat16()
-            tk = CONTEXT_TOKENS
-            if variant == "kv":
+            tk = UP_CONTEXT_TOKENS if variant == "chain" else CONTEXT_TOKENS
+            if variant in ("kv", "chain"):
                 kv = (randn(b, tk, c).bfloat16(), randn(b, tk, c).bfloat16())
                 kw, work = {"kv": kv}, _block_work(b, t, c, tk)
             else:
@@ -210,16 +230,17 @@ def kernel_checks(dev) -> dict:
                 work = _block_work(b, t, c, tk, 768)
             cases["fused_transformer_block"].append(_compare(
                 f"fused_transformer_block[{variant}]", (b, t, c, 8, tk),
-                "sampling" if variant == "kv" else "training",
+                {"kv": "sampling", "ctx": "training"}.get(variant, "chain"),
                 lambda: ft.fused_transformer_block(x, p, 8, **kw),
                 lambda: ft.transformer_block_reference(x, p, 8, **kw), work))
         # flash forward: the VAE mid AttnBlock (decoder at the sampling
         # batch, encoder at the training batch), the ds1 self-attention the
-        # training backward recomputes, and a 512px-slice shape (no path)
+        # training backward recomputes, and the upscale net's ds2
+        # self-attention at the chain batch
         for shape, path in [((BATCH, 1, 768, 512), "sampling"),
                             ((TRAIN_BATCH, 1, 768, 512), "training"),
                             ((TRAIN_BATCH, 8, 768, 28), "training"),
-                            ((2, 8, 3072, 64), "none")]:
+                            ((CHAIN_BATCH, 8, 3072, 64), "chain")]:
             q, k, v = (randn(shape).bfloat16() for _ in range(3))
             bh, t, d = shape[0] * shape[1], shape[2], shape[3]
             cases["flash_attention"].append(_compare(
@@ -229,9 +250,15 @@ def kernel_checks(dev) -> dict:
                 (4 * bh * t * t * d, 2 * 4 * bh * t * d, PEAK_BF16),
                 lambda: F.scaled_dot_product_attention(q, k, v)))
         # K5 at the training batch: the narrowest, widest and deepest
-        # ResBlock inputs, and the out head
-        for shape in [(TRAIN_BATCH, 32, 24, 224), (TRAIN_BATCH, 32, 24, 672),
-                      (TRAIN_BATCH, 4, 3, 1792), (TRAIN_BATCH, 16, 12, 448)]:
+        # ResBlock inputs, and the out head; at the chain batch, the U-Net
+        # out head (eps 1e-5) and the kl-f8 decoder's 32x24 norms (1e-6)
+        for shape, path, eps in [
+                ((TRAIN_BATCH, 32, 24, 224), "training", 1e-5),
+                ((TRAIN_BATCH, 32, 24, 672), "training", 1e-5),
+                ((TRAIN_BATCH, 4, 3, 1792), "training", 1e-5),
+                ((TRAIN_BATCH, 16, 12, 448), "training", 1e-5),
+                ((CHAIN_BATCH, 32, 24, 224), "chain", 1e-5),
+                ((CHAIN_BATCH, 32, 24, 512), "chain", 1e-6)]:
             x = (2 * randn(shape) + 0.5).bfloat16()
             scale = 1 + 0.1 * randn(shape[-1])
             bias = 0.1 * randn(shape[-1])
@@ -239,13 +266,15 @@ def kernel_checks(dev) -> dict:
             # torch's GroupNorm takes its affine parameters in x's dtype
             lib_scale, lib_bias = scale.bfloat16(), bias.bfloat16()
             cases["fused_group_norm"].append(_compare(
-                "fused_group_norm", shape, "training",
-                lambda: fg.fused_group_norm(x, scale, bias, 32, 1e-5, True),
-                lambda: fg._reference_gn(x, scale, bias, 32, 1e-5, True),
+                "fused_group_norm", shape, path,
+                lambda: fg.fused_group_norm(x, scale, bias, 32, eps, True),
+                lambda: fg._reference_gn(x, scale, bias, 32, eps, True),
                 # 3 for the sums, 4 for the affine normalise, 3 for SiLU
                 (10 * n, 2 * 2 * n + 2 * 4 * shape[-1], PEAK_F32),
                 lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32,
-                                            lib_scale, lib_bias, 1e-5))))
+                                            lib_scale, lib_bias, eps))))
+        tiled_checks(cases, randn)
+        resblock_checks(cases, randn, g)
     # K4 at the ds1 recompute of the training path
     shape = (TRAIN_BATCH, 8, 768, 28)
     bh, t, d = shape[0] * shape[1], shape[2], shape[3]
@@ -273,6 +302,115 @@ def kernel_checks(dev) -> dict:
         lambda: fa._reference_backward_dkv(q, k, v, do, lse, di),
         (8 * bh * t * t * d, 2 * 6 * bh * t * d + stats, PEAK_BF16)))
     return cases
+
+
+def tiled_checks(cases, randn) -> None:
+    """K6 at the chain's decode shapes: the kl-f8 decoder's 64x48 and
+    256x192 levels, the kl-f4 decoder's 128x96 and 512x384. The row is the
+    whole route (statistics, then normalize + SiLU); the statistics and the
+    normalize pass are timed alone beside it."""
+    from upgpt_torch.ops import fused_gn as fg
+
+    for shape in [(CHAIN_BATCH, 64, 48, 512), (CHAIN_BATCH, 256, 192, 128),
+                  (CHAIN_BATCH, 128, 96, 512), (CHAIN_BATCH, 512, 384, 128)]:
+        x = (2 * randn(shape) + 0.3).bfloat16()
+        scale = 1 + 0.1 * randn(shape[-1])
+        bias = 0.1 * randn(shape[-1])
+        lib_scale, lib_bias = scale.bfloat16(), bias.bfloat16()
+        n = x.numel()
+        row = _compare(
+            "tiled_group_norm", shape, "chain",
+            lambda: fg.tiled_group_norm(x, scale, bias, 32, 1e-6, True),
+            lambda: fg._reference_tiled(x, scale, bias, 32, 1e-6, True),
+            # 4 for the sums, 2 for x * a + b, 3 for SiLU; x read once and
+            # written once
+            (9 * n, 2 * 2 * n + 2 * 4 * shape[-1], PEAK_F32),
+            lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32,
+                                        lib_scale, lib_bias, 1e-6)))
+        # the statistics kernels alone (bytes: one read of x) and the
+        # normalize pass alone, each against its twin
+        stats = fg._stats_launch(x, 32, 1e-6)
+        parts = {
+            "stats": _compare(
+                "gn_stats", shape, "chain",
+                lambda: fg._stats_launch(x, 32, 1e-6),
+                lambda: fg._reference_gn_stats(x, 32, 1e-6),
+                (4 * n, 2 * n + 4 * 2 * shape[0] * shape[-1], PEAK_F32)),
+            "apply": _compare(
+                "gn_apply", shape, "chain",
+                lambda: fg._apply_launch(x, stats, scale, bias, True),
+                lambda: fg._reference_gn_apply(x, stats, scale, bias, True),
+                (5 * n, 2 * 2 * n, PEAK_F32))}
+        for part, res in parts.items():
+            for key in ("ms", "plain_ms", "bound_ms", "rel_err"):
+                row[f"{part}_{key}"] = res[key]
+        cases["tiled_group_norm"].append(row)
+
+
+def resblock_checks(cases, randn, g) -> None:
+    """K7 at the shapes the chain gives it: interp_256's ds1 half-step, its
+    widest concat and ds2, the upscale net's ds4; and one shape past the
+    JAX gate (the upscale net's ds1), on no path. Its library yardstick is
+    three calls (`F.group_norm`, `F.silu`, `F.conv2d` through cuDNN on the
+    channels-last view), as no one call computes the half-step."""
+    from upgpt_torch.ops import fused_resblock as frb
+
+    dev = g.device
+    for shape, o, path in [((CHAIN_BATCH, 32, 24, 224), 224, "chain"),
+                           ((CHAIN_BATCH, 32, 24, 672), 224, "chain"),
+                           ((CHAIN_BATCH, 16, 12, 448), 448, "chain"),
+                           ((CHAIN_BATCH, 32, 24, 512), 512, "chain"),
+                           ((CHAIN_BATCH, 128, 96, 256), 256, "none")]:
+        b, h, w, c = shape
+        x = (2 * randn(shape) + 0.5).bfloat16()
+        gs, gb = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        wt = (torch.randn(o, c, 3, 3, generator=g, device=dev)
+              / math.sqrt(9 * c)).bfloat16()
+        cb = (0.1 * randn(o)).bfloat16()
+        lib_gs, lib_gb = gs.bfloat16(), gb.bfloat16()
+        cases["fused_resblock"].append(_compare(
+            "fused_resblock", shape + (o,), path,
+            lambda: frb.fused_gn_silu_conv(x, gs, gb, wt, cb, 32, 1e-5),
+            lambda: frb._reference(x, gs, gb, wt, cb, 32, 1e-5),
+            (2 * b * h * w * 9 * c * o,
+             b * h * w * (c + o) * 2 + 9 * c * o * 2, PEAK_BF16),
+            lambda: F.conv2d(F.silu(F.group_norm(
+                x.permute(0, 3, 1, 2), 32, lib_gs, lib_gb, 1e-5)),
+                wt, cb, padding=1)))
+
+
+def resblock_gradient_check(dev) -> float:
+    """K7's autograd.Function against autograd of its twin at one shape.
+    The backward recomputes the twin, so only the order of cuDNN's float32
+    sums in the conv backward differs; the gradients of x, the weights and
+    the conv bias are bf16, where that order flips roundings by one bf16
+    step (2^-8 of an element). Bound: two steps of max|gradient|, 8e-3
+    (measured on an H100 (700 W): 9.6e-5 and 1.9e-4 in two runs)."""
+    from upgpt_torch.ops import fused_resblock as frb
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    c = o = 448
+    x = (2 * torch.randn(CHAIN_BATCH, 16, 12, c, generator=g, device=dev)
+         + 0.5).bfloat16()
+    gs = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    gb = 0.1 * torch.randn(c, generator=g, device=dev)
+    wt = (torch.randn(o, c, 3, 3, generator=g, device=dev)
+          / math.sqrt(9 * c)).bfloat16()
+    cb = (0.1 * torch.randn(o, generator=g, device=dev)).bfloat16()
+    leaves = [a.detach().requires_grad_() for a in (x, gs, gb, wt, cb)]
+    out = frb.fused_gn_silu_conv(*leaves, 32, 1e-5)
+    ct = torch.randn(out.shape, generator=g, device=dev).bfloat16()
+    got = torch.autograd.grad(out, leaves, ct)
+    ref = [a.detach().requires_grad_() for a in (x, gs, gb, wt, cb)]
+    want = torch.autograd.grad(frb._reference(*ref, 32, 1e-5), ref, ct)
+    rel = max((a.float() - b.float()).abs().max().item()
+              / b.float().abs().max().item() for a, b in zip(got, want))
+    print(f"fused_resblock gradient vs autograd of the twin "
+          f"{(CHAIN_BATCH, 16, 12, c, o)}: max|d|/max|ref| {rel:.3e}",
+          flush=True)
+    if rel > 8e-3:
+        raise RuntimeError(f"fused_resblock gradient disagrees: {rel:.3e}")
+    return rel
 
 
 def _redraw(model, seed: int, dev) -> None:
@@ -328,25 +466,45 @@ def _rel_l2_lists(xs, ys) -> float:
 def _counters():
     from upgpt_torch.ops import flash_attention as fa
     from upgpt_torch.ops import fused_gn as fg
+    from upgpt_torch.ops import fused_resblock as frb
     from upgpt_torch.ops import fused_transformer as ft
 
     return {"fused_transformer_block": ft.fused_transformer_block,
             "flash_attention": fa.flash_attention,
             "flash_backward_dq": fa.flash_backward_dq,
             "flash_backward_dkv": fa.flash_backward_dkv,
-            "fused_group_norm": fg.fused_group_norm}
+            "fused_group_norm": fg.fused_group_norm,
+            "tiled_group_norm": fg.tiled_group_norm,
+            "fused_resblock": frb.fused_gn_silu_conv}
+
+
+def _routes():
+    """The counted routes away from a kernel: (key, function, attribute):
+    the flash backward's plain autograd beyond its gate, fused GroupNorms
+    and level-2 ResBlock half-steps that their gates send to the plain
+    path."""
+    from upgpt_torch.ops import flash_attention as fa
+    from upgpt_torch.ops import fused_gn as fg
+    from upgpt_torch.ops import fused_resblock as frb
+
+    return [("flash_reference_backwards", fa.flash_attention,
+             "reference_backwards"),
+            ("fused_group_norm_plain_routes", fg.fused_group_norm,
+             "plain_routes"),
+            ("fused_resblock_plain_routes", frb.fused_gn_silu_conv,
+             "plain_routes")]
 
 
 def _reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
-    _counters()["flash_attention"].reference_backwards = 0
+    for _, fn, attr in _routes():
+        setattr(fn, attr, 0)
 
 
 def _read_counts() -> dict:
     counts = {k: fn.launches for k, fn in _counters().items()}
-    counts["flash_reference_backwards"] = (
-        _counters()["flash_attention"].reference_backwards)
+    counts.update((k, getattr(fn, attr)) for k, fn, attr in _routes())
     return counts
 
 
@@ -425,7 +583,10 @@ def slice_run(dev, card: str) -> dict:
     # AttnBlock once per decode; nothing of the training kernels
     expected = {"fused_transformer_block": 10 * STEPS, "flash_attention": 1,
                 "flash_backward_dq": 0, "flash_backward_dkv": 0,
-                "fused_group_norm": 0, "flash_reference_backwards": 0}
+                "fused_group_norm": 0, "tiled_group_norm": 0,
+                "fused_resblock": 0, "flash_reference_backwards": 0,
+                "fused_group_norm_plain_routes": 0,
+                "fused_resblock_plain_routes": 0}
     if any(c != expected for c in counts):
         raise RuntimeError(f"sampling launch counts {counts}, expected "
                            f"{expected} per run")
@@ -466,16 +627,14 @@ def expected_train_counts(model) -> dict:
             fused += 1
             recompute += flash_attention_qualifies(
                 b, heads, t, t, ch // heads, ucfg.dtype)
-    gn = 0
+    norms = [(b, h, w, model.unet.out_norm.weight.numel())]  # the out head
     for kind, name in model.unet._plan:
         if kind == "res":
             s = 2 ** level(name)
             blk = getattr(model.unet, name)
-            for norm in (blk.norm_in, blk.norm_out):
-                gn += fused_group_norm_qualifies(
-                    (b, h // s, w // s, norm.weight.numel()), 32)
-    gn += fused_group_norm_qualifies(
-        (b, h, w, model.unet.out_norm.weight.numel()), 32)
+            norms += [(b, h // s, w // s, norm.weight.numel())
+                      for norm in (blk.norm_in, blk.norm_out)]
+    gn = sum(fused_group_norm_qualifies(shape, 32) for shape in norms)
     vae = cfg.vae
     c_mid = vae.ch * vae.ch_mult[-1]
     encoder_flash = int(vae.use_flash_attention and flash_attention_qualifies(
@@ -483,7 +642,10 @@ def expected_train_counts(model) -> dict:
     return {"fused_transformer_block": fused,
             "flash_attention": encoder_flash + recompute,
             "flash_backward_dq": recompute, "flash_backward_dkv": recompute,
-            "fused_group_norm": gn, "flash_reference_backwards": 0}
+            "fused_group_norm": gn, "tiled_group_norm": 0,
+            "fused_resblock": 0, "flash_reference_backwards": 0,
+            "fused_group_norm_plain_routes": len(norms) - gn,
+            "fused_resblock_plain_routes": 0}
 
 
 def train_run(dev, card: str) -> dict:
@@ -584,6 +746,205 @@ def train_run(dev, card: str) -> dict:
             "peak_memory_gib": peak_gb, **e2e}
 
 
+def _level(cfg, name: str) -> int:
+    """The U-Net level (2**level downsampling) of a module name."""
+    if name.startswith("mid"):
+        return len(cfg.channel_mult) - 1
+    return int(name.split("_")[1])
+
+
+def expected_sampling_counts(model, b: int, tk: int) -> dict:
+    """Kernel launches of one DDIM-50 run of `model` at batch `b` with a
+    `tk`-token context, from the model's structure: per U-Net eval, the
+    SpatialTransformers K1 takes, the flash forward in the others' self-
+    attention where its gate admits the shape, the ResBlock half-steps the
+    half-step gate admits at level 2 (plain otherwise) or the GroupNorm
+    kernel takes at level 1, and the out head's GroupNorm, with the fused
+    calls their gates send to the plain path counted apart; per decode,
+    each VAE GroupNorm on the one-pass or the row-tiled route and the mid
+    AttnBlock's flash forward."""
+    from upgpt_torch.models.unet import cross_attention_layers
+    from upgpt_torch.models.vae import VAEGroupNorm
+    from upgpt_torch.ops.flash_attention import flash_attention_qualifies
+    from upgpt_torch.ops.fused_gn import (
+        fused_group_norm_qualifies, tiled_group_norm_qualifies,
+    )
+    from upgpt_torch.ops.fused_resblock import fused_resblock_qualifies
+    from upgpt_torch.ops.fused_transformer import fused_transformer_qualifies
+
+    cfg = model.config
+    ucfg, vcfg = cfg.unet, cfg.vae
+    h, w = cfg.latent_size
+    heads, dtype = ucfg.num_heads, model.unet.compute_dtype
+    n = {k: 0 for k in ("fused_transformer_block", "flash_attention",
+                        "fused_group_norm", "tiled_group_norm",
+                        "fused_resblock", "fused_group_norm_plain_routes",
+                        "fused_resblock_plain_routes")}
+    for name, ch in cross_attention_layers(ucfg):
+        s = 2 ** _level(ucfg, name)
+        t = (h // s) * (w // s)
+        if ucfg.use_fused_transformer and fused_transformer_qualifies(
+                t, ch, heads, tk):
+            n["fused_transformer_block"] += 1
+        elif ucfg.use_flash_attention:
+            n["flash_attention"] += flash_attention_qualifies(
+                b, heads, t, t, ch // heads, dtype)
+    for kind, name in model.unet._plan:
+        if kind != "res":
+            continue
+        s = 2 ** _level(ucfg, name)
+        blk = getattr(model.unet, name)
+        cout = blk.conv_in.out_channels
+        for cin in (blk.norm_in.weight.numel(), cout):
+            shape = (b, h // s, w // s, cin)
+            if blk.fused >= 2:
+                fits = fused_resblock_qualifies(shape, cout)
+                n["fused_resblock" if fits
+                  else "fused_resblock_plain_routes"] += 1
+            elif blk.fused == 1:
+                fits = fused_group_norm_qualifies(shape, 32)
+                n["fused_group_norm" if fits
+                  else "fused_group_norm_plain_routes"] += 1
+    if ucfg.use_fused_groupnorm:
+        fits = fused_group_norm_qualifies(
+            (b, h, w, model.unet.out_norm.weight.numel()), 32)
+        n["fused_group_norm" if fits
+          else "fused_group_norm_plain_routes"] += 1
+    counts = {k: v * STEPS for k, v in n.items()}
+    # the decoder: mid blocks at the latent grid, up_{i} at 2**(levels-1-i)
+    # times it, norm_out at the image size
+    levels = len(vcfg.ch_mult)
+    for name, mod in model.vae.decoder.named_modules():
+        if not isinstance(mod, VAEGroupNorm) or not mod.fused:
+            continue
+        top = name.split(".")[0]
+        if top.startswith("mid"):
+            f = 1
+        elif top == "norm_out":
+            f = 2 ** (levels - 1)
+        else:
+            f = 2 ** (levels - 1 - int(top.split("_")[1]))
+        shape = (b, h * f, w * f, mod.weight.numel())
+        if fused_group_norm_qualifies(shape, 32):
+            counts["fused_group_norm"] += 1
+        elif tiled_group_norm_qualifies(shape, 32):
+            counts["tiled_group_norm"] += 1
+        else:
+            counts["fused_group_norm_plain_routes"] += 1
+    c_mid = vcfg.ch * vcfg.ch_mult[-1]
+    counts["flash_attention"] += int(
+        vcfg.use_flash_attention and flash_attention_qualifies(
+            b, 1, h * w, h * w, c_mid, model.vae.decoder.conv_in.weight.dtype))
+    counts.update(flash_backward_dq=0, flash_backward_dkv=0,
+                  flash_reference_backwards=0)
+    return counts
+
+
+def chain_run(dev, card: str) -> dict:
+    from upgpt_torch.inference.pipeline import (
+        ChainedUpscalePipeline, prepare_lr_condition,
+    )
+    from upgpt_torch.models.unet import precompute_cross_kv
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    def build(variant: str, kernels: bool):
+        return build_latent_diffusion(
+            variant, dtype="bfloat16", device=dev,
+            use_flash_attention=kernels, use_fused_transformer=kernels,
+            use_fused_groupnorm=kernels, use_fused_resblock=kernels,
+            use_fused_vae_groupnorm=kernels)
+
+    base, up = build("interp_256", True), build("upscale", True)
+    _redraw(base, seed=31, dev=dev)
+    _redraw(up, seed=32, dev=dev)
+    plain_base, plain_up = build("interp_256", False), build("upscale", False)
+    plain_base.load_state_dict(base.state_dict())
+    plain_up.load_state_dict(up.state_dict())
+    h, w = base.config.latent_size
+    uh, uw = up.config.latent_size
+    f = 2 ** (len(up.config.vae.ch_mult) - 1)
+    image = (f * uh, f * uw, 3)  # (512, 384, 3)
+
+    # --- end to end, kernel path vs plain path, batch 2 ---
+    small = _batch(2, h, w, dev, seed=33)
+    g = torch.Generator(device=dev).manual_seed(34)
+    x_t = torch.randn(2, h, w, 4, generator=g, device=dev)
+    up_x_t = torch.randn(2, uh, uw, 3, generator=g, device=dev)
+    lr = torch.rand(2, 2 * uh, 2 * uw, 3, generator=g, device=dev) * 2 - 1
+    with torch.inference_mode():
+        eps, img = {}, {}
+        for tag, (mb, mu) in (("kernel", (base, up)),
+                              ("plain", (plain_base, plain_up))):
+            ctx = mu.build_context(small["text_emb"], small["style_emb"])
+            cond = {"c_crossattn": ctx,
+                    "c_concat": prepare_lr_condition(lr, (uh, uw)),
+                    "cross_kv": precompute_cross_kv(mu.unet, ctx)}
+            t = torch.tensor([981, 421], device=dev)
+            eps[tag] = mu.apply_model(up_x_t, t, cond)
+            img[tag] = ChainedUpscalePipeline(mb, mu, num_steps=4, eta=0.0
+                                              ).generate(small, x_T=x_t,
+                                                         up_x_T=up_x_t)
+    for tag in ("kernel", "plain"):
+        for what, val in (("upscale eps", eps[tag]), ("image", img[tag])):
+            if not torch.isfinite(val).all():
+                raise RuntimeError(f"chain {tag} path: non-finite {what}")
+    if tuple(img["kernel"].shape) != (2,) + image:
+        raise RuntimeError(f"chain image {tuple(img['kernel'].shape)}")
+    e2e = {"chain_eps_rel_l2": _rel_l2(eps["kernel"], eps["plain"]),
+           "chain_image_rel_l2": _rel_l2(img["kernel"], img["plain"])}
+    print(f"chain end to end (batch 2): upscale eps rel L2 "
+          f"{e2e['chain_eps_rel_l2']:.3e}, 4-step eta-0 chain 512x384 image "
+          f"rel L2 {e2e['chain_image_rel_l2']:.3e}", flush=True)
+    if (e2e["chain_eps_rel_l2"] > CHAIN_EPS_REL_L2
+            or e2e["chain_image_rel_l2"] > CHAIN_IMAGE_REL_L2):
+        raise RuntimeError(f"chain kernel path disagrees with plain path: "
+                           f"{e2e}")
+    del plain_base, plain_up, eps, img
+    torch.cuda.empty_cache()
+
+    # --- the chain: DDIM-50 eta 1 through both stages, batch 4, uint8 ---
+    pipe = ChainedUpscalePipeline(base, up, num_steps=STEPS, eta=1.0,
+                                  output_uint8=True)
+    batch = _batch(CHAIN_BATCH, h, w, dev, seed=35)
+    expected = {k: a + b for (k, a), b in zip(
+        expected_sampling_counts(base, CHAIN_BATCH, CONTEXT_TOKENS).items(),
+        expected_sampling_counts(up, CHAIN_BATCH,
+                                 UP_CONTEXT_TOKENS).values())}
+    t0 = time.perf_counter()
+    pipe.generate(batch, torch.Generator(device=dev).manual_seed(36))
+    torch.cuda.synchronize()
+    print(f"chain warm-up run: {time.perf_counter() - t0:.3f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    times, counts = [], []
+    for i in range(CHAIN_TIMED_RUNS):
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = pipe.generate(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(_read_counts())
+        if tuple(out.shape) != (CHAIN_BATCH,) + image or (
+                out.dtype != torch.uint8):
+            raise RuntimeError(f"chain output {tuple(out.shape)} {out.dtype}")
+        if out.min().item() == out.max().item():
+            raise RuntimeError("chain output image is constant")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if any(c != expected for c in counts):
+        raise RuntimeError(f"chain launch counts {counts}, expected "
+                           f"{expected} per run")
+    sec = min(times)
+    print(f"chain DDIM-{STEPS} eta 1 (interp_256 -> upscale) batch "
+          f"{CHAIN_BATCH} -> uint8 {tuple(out.shape)}: "
+          f"{' '.join(f'{t:.4f}' for t in times)} s/batch, best {sec:.4f} "
+          f"s/batch = {CHAIN_BATCH / sec:.4f} img/s on {card}; peak memory "
+          f"{peak_gb:.3f} GiB; launches per run {counts[0]}", flush=True)
+    return {"launches": counts[0], "s_per_batch": times,
+            "img_per_s": CHAIN_BATCH / sec, "peak_memory_gib": peak_gb,
+            **e2e}
+
+
 KERNELS = [
     # name, source, replaces (the TPU kernel's def line)
     ("fused_transformer_block", "upgpt_torch/csrc/fused_transformer.cu",
@@ -596,13 +957,18 @@ KERNELS = [
      "upgpt_tpu/ops/flash_attention.py:179"),
     ("fused_group_norm", "upgpt_torch/csrc/fused_gn.cu",
      "upgpt_tpu/ops/fused_gn.py:198"),
+    ("tiled_group_norm", "upgpt_torch/csrc/gn_stats.cu",
+     "upgpt_tpu/ops/fused_gn.py:119"),
+    ("fused_resblock", "upgpt_torch/csrc/fused_resblock.cu",
+     "upgpt_tpu/ops/fused_resblock.py:134"),
 ]
 
 
 def kernel_entry(name, source, replaces, cases, by_path) -> dict:
-    """One kernel's line: launches over one sampling run and one train step;
-    ms, plain_ms, library_ms and bound_ms summed over the shapes the two
-    paths give it (one call each); max_abs_err over every case."""
+    """One kernel's line: launches over one sampling run, one train step and
+    one chain run; ms, plain_ms, library_ms and bound_ms summed over the
+    shapes the three paths give it (one call each); max_abs_err over every
+    case."""
     on_path = [c for c in cases if c["path"] != "none"]
     libs = [c["library_ms"] for c in on_path]
     by_bytes = sum(c["bound_ms"] for c in on_path if c["bound_by"] == "bytes")
@@ -647,17 +1013,23 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     cases = kernel_checks(dev)
+    grad_rel = resblock_gradient_check(dev)
     sampling = slice_run(dev, card)
     torch.cuda.empty_cache()
     training = train_run(dev, card)
+    torch.cuda.empty_cache()
+    chain = chain_run(dev, card)
 
+    runs = {"sampling_run": sampling, "train_step": training,
+            "chain_run": chain}
     kernels = [kernel_entry(k, src, rep, cases[k], {
-        "sampling_run": sampling["launches"][k],
-        "train_step": training["launches"][k]}) for k, src, rep in KERNELS]
-    print(json.dumps({"sampling": {k: v for k, v in sampling.items()
-                                   if k != "launches"},
-                      "training": {k: v for k, v in training.items()
-                                   if k != "launches"}}), flush=True)
+        path: run["launches"][k] for path, run in runs.items()})
+        for k, src, rep in KERNELS]
+    next(k for k in kernels if k["name"] == "fused_resblock")[
+        "gradient_rel_err"] = grad_rel
+    print(json.dumps({path: {k: v for k, v in run.items()
+                             if k != "launches"}
+                      for path, run in runs.items()}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

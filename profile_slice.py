@@ -1,16 +1,24 @@
-"""Profile the PyTorch port's sampling path or train step on one NVIDIA GPU.
+"""Profile the PyTorch port's sampling path, train step or 256->512 chain on
+one NVIDIA GPU.
 
     python3 profile_slice.py [batch ...]          (default: 8 32)
     python3 profile_slice.py --train [batch ...]  (default: 12)
+    python3 profile_slice.py --chain [batch ...]  (default: 4)
 
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit. For each batch it builds interp_256 at full width with seeded
 random weights (as chip_smoke.py does): in bf16 for sampling, or with
 float32 masters under bf16 compute and the training kernels on for
-`--train`. It runs the program (GenerationPipeline(DDIM-50, eta 1, uint8),
-or one train step: VAE encode, U-Net forward and backward, AdamW, EMA)
-once to warm up (twice for a train step), once timed without the profiler,
-and once under torch.profiler, then prints
+`--train`. `--chain` builds interp_256 and upscale in bf16 with the
+chain's GroupNorm kernel switches on (as chip_smoke.py's chain phase) and
+profiles its two stages one after the other: the 256 stage
+(GenerationPipeline(DDIM-50, eta 1) to a float image), then the upscale
+stage from that image (UpscalePipeline(DDIM-50, eta 1, uint8)), so that
+each profiled run stays near the sampling path's activity count. It runs
+the program (GenerationPipeline(DDIM-50, eta 1, uint8), one train step:
+VAE encode, U-Net forward and backward, AdamW, EMA, or a chain stage) once
+to warm up (twice for a train step), once timed without the profiler, and
+once under torch.profiler, then prints
 
 - the unprofiled wall time per batch and img/s;
 - device busy time: the length of the union of the intervals of every
@@ -44,6 +52,10 @@ KINDS = [
     ("flash backward K4 (csrc)", lambda n: "dq_kernel<" in n
      or "dkv_kernel<" in n),
     ("GroupNorm+SiLU K5 (csrc)", lambda n: "gn_kernel<" in n),
+    ("GroupNorm stats K6/K7 (csrc)", lambda n: "partial_kernel<" in n
+     or "finalize_kernel" in n),
+    ("GroupNorm apply K6 (csrc)", lambda n: "apply_kernel<" in n),
+    ("GN+SiLU+conv K7 (csrc)", lambda n: "conv_kernel<" in n),
     ("optimizer and EMA (foreach)", lambda n: "multi_tensor" in n),
     ("memcpy / memset", lambda n: n.startswith(("memcpy", "memset"))),
     ("convolutions (cuDNN)",
@@ -144,6 +156,40 @@ def profile_train(model, b: int, dev, card: str) -> None:
     profile_run(run, "train step", b, card)
 
 
+def profile_chain(b: int, dev, card: str) -> None:
+    from upgpt_torch.inference.pipeline import (
+        GenerationPipeline, UpscalePipeline,
+    )
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    switches = dict(dtype="bfloat16", device=dev, use_fused_groupnorm=True,
+                    use_fused_resblock=True, use_fused_vae_groupnorm=True)
+    base = build_latent_diffusion("interp_256", **switches)
+    up = build_latent_diffusion("upscale", **switches)
+    chip_smoke._redraw(base, seed=31, dev=dev)
+    chip_smoke._redraw(up, seed=32, dev=dev)
+    h, w = base.config.latent_size
+    batch = chip_smoke._batch(b, h, w, dev, seed=35)
+    first = GenerationPipeline(base, num_steps=STEPS, eta=1.0)
+    second = UpscalePipeline(up, num_steps=STEPS, eta=1.0, output_uint8=True)
+    image = first.generate(batch, torch.Generator(device=dev).manual_seed(0))
+
+    def run_first(seed):
+        first.generate(batch, torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+
+    def run_second(seed):
+        second.upscale(image, batch["text_emb"], batch["style_emb"],
+                       torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+
+    run_second(0)
+    profile_run(run_first, f"chain 256 stage (DDIM-{STEPS} eta 1, kl-f8 "
+                f"decode) per batch", b, card)
+    profile_run(run_second, f"chain upscale stage (DDIM-{STEPS} eta 1, "
+                f"kl-f4 decode, uint8) per batch", b, card)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: no CUDA device; this script only "
@@ -151,10 +197,15 @@ def main() -> None:
     from upgpt_torch.zoo import build_latent_diffusion
 
     train = "--train" in sys.argv
-    batches = [int(a) for a in sys.argv[1:] if a != "--train"]
+    chain = "--chain" in sys.argv
+    batches = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
     dev = torch.device("cuda", 0)
     card = chip_smoke._card_line()
     print(card, flush=True)
+    if chain:
+        for b in batches or [chip_smoke.CHAIN_BATCH]:
+            profile_chain(b, dev, card)
+        return
     if train:
         model = build_latent_diffusion(
             "interp_256", dtype="bfloat16", param_dtype="float32",

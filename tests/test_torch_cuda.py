@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from upgpt_torch.models.unet import SpatialTransformer  # noqa: E402
 from upgpt_torch.ops import flash_attention as fa  # noqa: E402
 from upgpt_torch.ops import fused_gn as fg  # noqa: E402
+from upgpt_torch.ops import fused_resblock as frb  # noqa: E402
 from upgpt_torch.ops import fused_transformer as ft  # noqa: E402
 
 TK, CTX = 87, 768
@@ -259,10 +260,124 @@ def test_fused_gn_rejects_what_it_does_not_take(dev):
     x = torch.zeros(1, 4, 128, 4, device=dev).transpose(2, 3)
     with pytest.raises(ValueError):
         fg.fused_group_norm(x, ones, zeros)
-    # where JAX would take the row-tiled statistics kernel (not ported)
+    # where JAX takes the row-tiled statistics kernel, the port launches K6
     x = torch.zeros(1, 256, 192, 128, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        fg.fused_group_norm(x, ones, zeros)
+    before = fg.fused_group_norm.launches, fg.tiled_group_norm.launches
+    out = fg.fused_group_norm(x, ones, zeros)
+    torch.cuda.synchronize()
+    assert (fg.fused_group_norm.launches,
+            fg.tiled_group_norm.launches) == (before[0], before[1] + 1)
+    assert torch.equal(out, torch.zeros_like(x))
+    # channels that are not a multiple of 8
+    x = torch.zeros(1, 64, 64, 36, device=dev)
+    with pytest.raises(ValueError):
+        fg.tiled_group_norm(x, ones[:36], zeros[:36], 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((4, 64, 48, 512), torch.bfloat16, 1e-5),     # kl-f8 decoder
+    ((4, 512, 384, 128), torch.bfloat16, 1e-5),   # kl-f4 decoder, 201 MB
+    ((2, 37, 23, 2048), torch.bfloat16, 1e-5),    # two column slabs
+    ((3, 50, 30, 96), torch.float32, 1e-5),       # 96 / 32 groups, float32
+])
+def test_gn_stats_kernel_matches_twin(dev, shape, dtype, tol):
+    # float32 statistics of a shifted-mean input on both sides, summed in
+    # other orders: relative 1e-5
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = (2 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dtype)
+    got = fg._stats_launch(x, 32, 1e-6)
+    torch.cuda.synchronize()
+    want = fg._reference_gn_stats(x, 32, 1e-6)
+    assert got.shape == want.shape == (shape[0], 2, shape[-1])
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,silu,tol", [
+    ((4, 256, 192, 128), torch.bfloat16, True, 2e-2),
+    ((4, 128, 96, 512), torch.bfloat16, False, 2e-2),
+    ((2, 64, 48, 256), torch.float32, True, 1e-5),
+])
+def test_tiled_group_norm_kernels_match_twin(dev, shape, dtype, silu, tol):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = (2 * torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+    bias = 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+    before = fg.tiled_group_norm.launches
+    got = fg.tiled_group_norm(x, scale, bias, 32, 1e-6, silu)
+    torch.cuda.synchronize()
+    assert fg.tiled_group_norm.launches == before + 1
+    assert got.dtype == dtype
+    want = fg._reference_tiled(x, scale, bias, 32, 1e-6, silu)
+    assert _rel(got, want) < tol
+
+
+def _resblock_inputs(shape, o, dtype, dev, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = (2 * torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
+    gs = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    gb = 0.1 * torch.randn(c, generator=g, device=dev)
+    w = (torch.randn(o, c, 3, 3, generator=g, device=dev)
+         / math.sqrt(9 * c)).to(dtype)
+    cb = (0.1 * torch.randn(o, generator=g, device=dev)).to(dtype)
+    return x, gs, gb, w, cb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,dtype,groups,tol", [
+    ((4, 32, 24, 224), 224, torch.bfloat16, 32, 2e-2),   # interp_256 ds1
+    ((4, 32, 24, 672), 224, torch.bfloat16, 32, 2e-2),   # its widest concat
+    ((4, 16, 12, 448), 448, torch.bfloat16, 32, 2e-2),   # ds2
+    ((4, 32, 24, 512), 512, torch.bfloat16, 32, 2e-2),   # upscale ds4
+    ((2, 128, 96, 256), 256, torch.bfloat16, 32, 2e-2),  # beyond the gate
+    ((3, 1, 1, 64), 40, torch.bfloat16, 32, 2e-2),       # every tap outside
+    ((2, 5, 7, 48), 70, torch.bfloat16, 16, 2e-2),       # ragged tiles
+    ((2, 9, 6, 64), 96, torch.float32, 32, 1e-5),
+])
+def test_fused_resblock_kernel_matches_twin(dev, shape, o, dtype, groups,
+                                            tol):
+    x, gs, gb, w, cb = _resblock_inputs(shape, o, dtype, dev)
+    before = frb.fused_gn_silu_conv.launches
+    got = frb.fused_gn_silu_conv(x, gs, gb, w, cb, groups, 1e-5)
+    torch.cuda.synchronize()
+    assert frb.fused_gn_silu_conv.launches == before + 1
+    assert got.shape == shape[:3] + (o,) and got.dtype == dtype
+    want = frb._reference(x, gs, gb, w, cb, groups, 1e-5)
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.cuda
+def test_fused_resblock_gradients_recompute_the_twin(dev):
+    x, gs, gb, w, cb = _resblock_inputs((2, 16, 12, 448), 448,
+                                        torch.bfloat16, dev)
+    leaves = [a.detach().requires_grad_() for a in (x, gs, gb, w, cb)]
+    out = frb.fused_gn_silu_conv(*leaves, 32, 1e-5)
+    ct = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, ct)
+    ref = [a.detach().requires_grad_() for a in (x, gs, gb, w, cb)]
+    want = torch.autograd.grad(frb._reference(*ref, 32, 1e-5), ref, ct)
+    # the same recompute; cuDNN may sum the conv backward in another order,
+    # which flips bf16 roundings of the x, weight and bias gradients by one
+    # step (2^-8): two steps of max|gradient|
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and _rel(a, b) < 8e-3
+
+
+@pytest.mark.cuda
+def test_fused_resblock_rejects_what_it_does_not_take(dev):
+    x, gs, gb, w, cb = _resblock_inputs((1, 4, 4, 64), 64, torch.float16,
+                                        dev)
+    with pytest.raises(TypeError):
+        frb.fused_gn_silu_conv(x, gs, gb, w, cb)
+    x = torch.zeros(1, 4, 64, 4, device=dev).transpose(2, 3)
+    with pytest.raises(ValueError):
+        frb.fused_gn_silu_conv(x, gs, gb, w.float(), cb.float())
+    x = torch.zeros(1, 4, 4, 36, device=dev)
+    w = torch.zeros(8, 36, 3, 3, device=dev)
+    with pytest.raises(ValueError):  # channels not a multiple of 8
+        frb.fused_gn_silu_conv(x, gs[:36], gb[:36], w, cb[:8], 4)
 
 
 @pytest.mark.cuda
@@ -271,6 +386,38 @@ def test_build_latent_diffusion_lands_on_cuda(dev):
 
     model = build_latent_diffusion("tiny")
     assert all(p.device.type == "cuda" for p in model.parameters())
+    model = build_latent_diffusion("upscale", dtype="bfloat16",
+                                   use_fused_groupnorm=True,
+                                   use_fused_resblock=True,
+                                   use_fused_vae_groupnorm=True)
+    assert all(p.device.type == "cuda" for p in model.parameters())
+    assert model.unet.config.fused_level == 2 and model.pose is None
+
+
+@pytest.mark.cuda
+def test_tiny_chain_moves_the_kernel_counters(dev):
+    from upgpt_torch.inference.pipeline import ChainedUpscalePipeline
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    switches = dict(dtype="bfloat16", use_fused_groupnorm=True,
+                    use_fused_resblock=True, use_fused_vae_groupnorm=True)
+    base = build_latent_diffusion("tiny", **switches)
+    up = build_latent_diffusion("tiny_upscale", **switches)
+    g = torch.Generator(device=dev).manual_seed(10)
+    b = 2
+    batch = {"text_emb": torch.randn(b, 77, 768, generator=g, device=dev),
+             "style_emb": torch.randn(b, 9, 768, generator=g, device=dev),
+             "smpl": torch.randn(b, 1, 85, generator=g, device=dev),
+             "person_mask": -torch.ones(b, 32, 24, 1, device=dev)}
+    # every tiny GroupNorm fits the one-pass kernel; the row-tiled route is
+    # held above and by chip_smoke.py's chain phase
+    counters = [fg.fused_group_norm, frb.fused_gn_silu_conv]
+    before = [f.launches for f in counters]
+    out = ChainedUpscalePipeline(base, up, num_steps=4, output_uint8=True
+                                 ).generate(batch, g)
+    torch.cuda.synchronize()
+    assert out.shape == (b, 64, 48, 3) and out.dtype == torch.uint8
+    assert all(f.launches > n for f, n in zip(counters, before))
 
 
 @pytest.mark.cuda

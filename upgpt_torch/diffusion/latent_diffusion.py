@@ -56,6 +56,24 @@ class LatentDiffusionConfig:
     def interp_256(cls, **overrides) -> "LatentDiffusionConfig":
         return dataclasses.replace(cls(), **overrides)
 
+    @classmethod
+    def upscale_512(cls, **overrides) -> "LatentDiffusionConfig":
+        """The upscale stage: kl-f4 latents (128x96x3) with the 3-channel
+        low-res image as `c_concat` and an 86-token context (no pose stage).
+        It trains without EMA (upscale/config.yaml `use_ema: false`), which
+        here is `create_train_state(..., use_ema=False)`."""
+        base = cls(
+            unet=UNetConfig.upscale_512(),
+            vae=AutoencoderConfig.kl_f4(),
+            # upscale/config.yaml:5-6 trains on the SD-default schedule
+            linear_start=1e-4,
+            linear_end=2e-2,
+            latent_size=(128, 96),
+            latent_channels=3,
+            pose_input_dim=None,
+        )
+        return dataclasses.replace(base, **overrides)
+
 
 class LatentDiffusion(nn.Module):
     def __init__(self, config: LatentDiffusionConfig):

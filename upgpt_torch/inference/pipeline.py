@@ -9,13 +9,20 @@ context are projected once before the step loop (`precompute_cross_kv`).
 Only the DDIM sampler on the uniform grid is ported; "dpm++" and "unipc"
 raise NotImplementedError. `shared_x_T` broadcasts one initial draw over the
 batch, as the reference's seeded interpolation does (ddpm.py:1433-1437).
+
+The chained 256->512 path (app.py:93-97, 262-278, 379-409) is
+`ChainedUpscalePipeline`: the 256 model's float image, `prepare_lr_condition`
+to the upscale stage's latent grid, and the upscale model's lr-conditioned
+DDIM in kl-f4 latent space, decoded to 512x384. `UpscalePipeline` is the
+second stage alone.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from upgpt_torch.diffusion.ddim import ddim_sample
 from upgpt_torch.diffusion.latent_diffusion import LatentDiffusion
@@ -110,3 +117,82 @@ class GenerationPipeline:
         if self.output_uint8:
             return torch.round((img + 1.0) * 127.5).to(torch.uint8)
         return img
+
+
+# ---------------- 256 -> 512 upscale chain ----------------
+
+
+def prepare_lr_condition(image_256: torch.Tensor,
+                         out_hw: Tuple[int, int] = (128, 96)) -> torch.Tensor:
+    """256x192 sample -> low-res concat conditioning for the upscale stage
+    (app.py:93-97): edge-pad 4 px left and right, bilinear resize to the
+    stage's latent grid, values left in [-1, 1]. NHWC in and out, float32.
+
+    The resize antialiases when it downscales, as `jax.image.resize(...,
+    "bilinear")` does; `F.interpolate(antialias=True)` computes the same
+    triangle filter scaled to the output spacing.
+    """
+    x = image_256.float().permute(0, 3, 1, 2)
+    x = F.pad(x, (4, 4, 0, 0), mode="replicate")
+    x = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1)
+
+
+class UpscalePipeline:
+    """The 512 stage alone: lr-concat conditioned DDIM in kl-f4 latent
+    space (app.py:379-409, models/upgpt/upscale/config.yaml)."""
+
+    def __init__(self, model: LatentDiffusion, num_steps: int = 200,
+                 eta: float = 1.0, output_uint8: bool = False):
+        self.inner = GenerationPipeline(model, num_steps=num_steps, eta=eta,
+                                        output_uint8=output_uint8)
+        # lr concat grid = this stage's latent size (128x96 released)
+        self.lr_hw = model.config.latent_size
+
+    def upscale(self, image_256: torch.Tensor, text_emb: torch.Tensor,
+                style_emb: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, *,
+                x_T: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        batch = {"text_emb": text_emb, "style_emb": style_emb,
+                 # the c_concat slot carries the lr image (3 channels)
+                 "person_mask": prepare_lr_condition(image_256, self.lr_hw)}
+        return self.inner.generate(batch, generator, x_T=x_T, noise=noise)
+
+
+class ChainedUpscalePipeline:
+    """End-to-end 256->512 generation: the 256 stage to a float image on
+    the card, its lr condition, then the upscale stage.
+
+    `batch` is the 256 stage's conditioning (text_emb, style_emb, smpl,
+    person_mask); the upscale stage reuses text_emb and style_emb (an
+    86-token context) and takes its c_concat from the generated image.
+    Both stages draw from one `generator`, the 256 stage first; `x_T`,
+    `noise`, `up_x_T` and `up_noise` override the draws of each stage.
+    """
+
+    def __init__(self, base_model: LatentDiffusion,
+                 upscale_model: LatentDiffusion, num_steps: int = 50,
+                 eta: float = 1.0, output_uint8: bool = False):
+        # the intermediate stays a float image in [-1, 1]; only the final
+        # stage honours output_uint8
+        self.base = GenerationPipeline(base_model, num_steps=num_steps,
+                                       eta=eta)
+        self.up = GenerationPipeline(upscale_model, num_steps=num_steps,
+                                     eta=eta, output_uint8=output_uint8)
+        # lr concat grid = the upscale stage's latent size (128x96 released)
+        self.lr_hw = upscale_model.config.latent_size
+
+    def generate(self, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None, *,
+                 x_T: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None,
+                 up_x_T: Optional[torch.Tensor] = None,
+                 up_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        img256 = self.base.generate(batch, generator, x_T=x_T, noise=noise)
+        up_batch = {"text_emb": batch["text_emb"],
+                    "style_emb": batch.get("style_emb"),
+                    "person_mask": prepare_lr_condition(img256, self.lr_hw)}
+        return self.up.generate(up_batch, generator, x_T=up_x_T,
+                                noise=up_noise)

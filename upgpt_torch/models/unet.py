@@ -18,7 +18,11 @@ CUDA block kernel; `use_flash_attention` lets long self-attention in the
 plain twin (and in the kernel's recompute backward) use the flash kernels;
 `use_fused_groupnorm` routes every ResBlock GroupNorm+SiLU and the out head
 to the one-pass GroupNorm kernel where `fused_group_norm_qualifies` (the
-JAX ResBlock's fused level 1).
+JAX ResBlock's fused level 1); `use_fused_resblock` (level 2, over level 1)
+routes each ResBlock half-step GroupNorm+SiLU+conv that
+`fused_resblock_qualifies` admits to the CUDA half-step kernel and runs the
+others plain, as the JAX ResBlock does; the out head still follows
+`use_fused_groupnorm`.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ from upgpt_torch.ops.basic import (
 )
 from upgpt_torch.ops.fused_gn import (
     fused_group_norm, fused_group_norm_qualifies,
+)
+from upgpt_torch.ops.fused_resblock import (
+    fused_gn_silu_conv, fused_resblock_qualifies,
 )
 from upgpt_torch.ops.fused_transformer import (
     fused_transformer_block, fused_transformer_qualifies, param_tree,
@@ -57,6 +64,9 @@ class UNetConfig:
     use_flash_attention: bool = True
     # the CUDA GroupNorm+SiLU kernel (ops/fused_gn.py), per qualifying shape
     use_fused_groupnorm: bool = False
+    # the CUDA GroupNorm+SiLU+conv3x3 kernel (ops/fused_resblock.py) for the
+    # ResBlock half-steps that qualify: the JAX ResBlock's fused level 2
+    use_fused_resblock: bool = False
     # the CUDA SpatialTransformer kernel (ops/fused_transformer.py), per
     # qualifying shape
     use_fused_transformer: bool = False
@@ -66,13 +76,30 @@ class UNetConfig:
     def interp_256(cls, **overrides) -> "UNetConfig":
         return dataclasses.replace(cls(), **overrides)
 
+    @classmethod
+    def upscale_512(cls, **overrides) -> "UNetConfig":
+        # models/upgpt/upscale/config.yaml:37-59: 3 latent + 3 lr-image
+        # channels in, 3 out, 256 channels, attention at ds 8/4/2
+        base = cls(in_channels=6, model_channels=256, out_channels=3,
+                   attention_resolutions=(8, 4, 2), channel_mult=(1, 2, 2, 4))
+        return dataclasses.replace(base, **overrides)
+
+    @property
+    def fused_level(self) -> int:
+        """The JAX ResBlock's `fused` level: 2 with the half-step kernel, 1
+        with the GroupNorm kernel, 0 plain."""
+        return 2 if self.use_fused_resblock else int(self.use_fused_groupnorm)
+
 
 def group_norm_silu(x: torch.Tensor, norm: Norm, fused: bool,
                     eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm(32) then SiLU, through the one-pass kernel when `fused` and
-    the shape qualifies."""
-    if fused and fused_group_norm_qualifies(x.shape, 32):
-        return fused_group_norm(x, norm.weight, norm.bias, 32, eps, True)
+    the shape qualifies; a fused call the gate refuses runs plain and is
+    counted in `fused_group_norm.plain_routes`."""
+    if fused:
+        if fused_group_norm_qualifies(x.shape, 32):
+            return fused_group_norm(x, norm.weight, norm.bias, 32, eps, True)
+        fused_group_norm.plain_routes += 1
     return silu(group_norm(x, norm.weight, norm.bias, 32, eps))
 
 
@@ -90,13 +117,15 @@ class GroupNorm32(Norm):
 
 class ResBlock(nn.Module):
     """GN->SiLU->conv, + timestep projection, GN->SiLU->zero-conv, residual
-    (reference openaimodel.py:163-275, additive-embedding path). `fused_gn`
-    is the JAX ResBlock's fused level 1: both GN+SiLU through the kernel."""
+    (reference openaimodel.py:163-275, additive-embedding path). `fused` is
+    the JAX ResBlock's level: 0 plain; 1 both GN+SiLU through the GroupNorm
+    kernel where it qualifies; 2 each half-step GN+SiLU+conv through the
+    half-step kernel where `fused_resblock_qualifies`, else plain."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
-                 dtype=None, fused_gn: bool = False):
+                 dtype=None, fused: int = 0):
         super().__init__()
-        self.fused_gn = fused_gn
+        self.fused = fused
         self.norm_in = Norm(in_channels)
         self.conv_in = Conv2d(in_channels, out_channels, 3, padding=1,
                               dtype=dtype)
@@ -107,10 +136,20 @@ class ResBlock(nn.Module):
         self.skip = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                      if in_channels != out_channels else None)
 
+    def _half_step(self, x: torch.Tensor, norm: Norm,
+                   conv: Conv2d) -> torch.Tensor:
+        if self.fused >= 2:
+            if fused_resblock_qualifies(x.shape, conv.out_channels):
+                return fused_gn_silu_conv(x, norm.weight, norm.bias,
+                                          conv.weight, conv.bias, 32, 1e-5)
+            fused_gn_silu_conv.plain_routes += 1
+            return conv(silu(group_norm(x, norm.weight, norm.bias, 32, 1e-5)))
+        return conv(group_norm_silu(x, norm, self.fused == 1))
+
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self.conv_in(group_norm_silu(x, self.norm_in, self.fused_gn))
+        h = self._half_step(x, self.norm_in, self.conv_in)
         h = h + self.emb_proj(silu(emb))[:, None, None, :].to(h.dtype)
-        h = self.conv_out(group_norm_silu(h, self.norm_out, self.fused_gn))
+        h = self._half_step(h, self.norm_out, self.conv_out)
         if self.skip is not None:
             x = self.skip(x)
         return x + h.to(x.dtype)
@@ -265,7 +304,7 @@ class UNetModel(nn.Module):
 
         def res(cin, cout, name):
             self.add_module(name, ResBlock(cin, cout, 4 * mc, comp,
-                                           cfg.use_fused_groupnorm))
+                                           cfg.fused_level))
             self._plan.append(("res", name))
 
         skips = [mc]

@@ -7,9 +7,13 @@ float32 statistics, swish, the single-head mid AttnBlock (scale c^-0.5,
 float32 softmax) through `multi_head_attention(use_flash=...)`, nearest 2x
 upsampling, and the encoder's asymmetric (0, 1, 0, 1) pad before a VALID
 stride-2 conv. `encode` returns a `DiagonalGaussian` over float32 moments.
-`AutoencoderConfig.dtype` is the compute dtype (see models/layers.py). kl-f4
-and the VAE's fused GroupNorm are not ported yet. The latent scale factor is
-applied by the diffusion model, not here.
+`AutoencoderConfig.dtype` is the compute dtype (see models/layers.py).
+`kl_f8` is the main stage, `kl_f4` the upscale stage (z=3, ch_mult 1/2/4).
+`use_fused_groupnorm` routes every norm through `VAEGroupNorm` to the
+GroupNorm kernels (`ops/fused_gn.py`): the one-pass kernel where it
+qualifies, the row-tiled one for decode-size tensors, as the JAX
+VAEGroupNorm does. The latent scale factor is applied by the diffusion
+model, not here.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ from upgpt_torch.ops.attention import multi_head_attention
 from upgpt_torch.ops.basic import (
     asymmetric_pad_hw, group_norm, nearest_upsample_2x, silu,
 )
+from upgpt_torch.ops.fused_gn import (
+    fused_group_norm, fused_group_norm_qualifies, tiled_group_norm_qualifies,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,34 +46,62 @@ class AutoencoderConfig:
     out_ch: int = 3
     resolution: int = 256
     use_flash_attention: bool = False
+    # every GroupNorm through the CUDA GroupNorm kernels (VAEGroupNorm)
+    use_fused_groupnorm: bool = False
     dtype: Optional[torch.dtype] = None  # compute dtype; None: the params'
 
     @classmethod
     def kl_f8(cls, **overrides) -> "AutoencoderConfig":
         return dataclasses.replace(cls(), **overrides)
 
+    @classmethod
+    def kl_f4(cls, **overrides) -> "AutoencoderConfig":
+        # models/upgpt/upscale/config.yaml:60-81
+        base = cls(embed_dim=3, z_channels=3, ch_mult=(1, 2, 4))
+        return dataclasses.replace(base, **overrides)
 
-def _gn(x: torch.Tensor, norm: Norm) -> torch.Tensor:
-    return group_norm(x, norm.weight, norm.bias, num_groups=32, eps=1e-6)
+
+class VAEGroupNorm(Norm):
+    """GroupNorm(32), eps 1e-6, float32 statistics, optional SiLU. With
+    `fused`, an NHWC tensor goes to `fused_group_norm` (the one-pass kernel
+    for latent-size tensors, the row-tiled one for decode-size ones) where
+    either gate admits it, else the plain path runs (counted in
+    `fused_group_norm.plain_routes`)."""
+
+    def __init__(self, channels: int, fused: bool = False,
+                 with_silu: bool = False):
+        super().__init__(channels)
+        self.fused = fused
+        self.with_silu = with_silu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            if x.dim() == 4 and (fused_group_norm_qualifies(x.shape, 32)
+                                 or tiled_group_norm_qualifies(x.shape, 32)):
+                return fused_group_norm(x, self.weight, self.bias, 32, 1e-6,
+                                        self.with_silu)
+            fused_group_norm.plain_routes += 1
+        out = group_norm(x, self.weight, self.bias, num_groups=32, eps=1e-6)
+        return silu(out) if self.with_silu else out
 
 
 class ResnetBlock(nn.Module):
     """GN->swish->conv ->GN->swish->conv + (1x1) shortcut."""
 
-    def __init__(self, in_channels: int, out_channels: int, dtype=None):
+    def __init__(self, in_channels: int, out_channels: int, dtype=None,
+                 fused_gn: bool = False):
         super().__init__()
-        self.norm1 = Norm(in_channels)
+        self.norm1 = VAEGroupNorm(in_channels, fused_gn, with_silu=True)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,
                             dtype=dtype)
-        self.norm2 = Norm(out_channels)
+        self.norm2 = VAEGroupNorm(out_channels, fused_gn, with_silu=True)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1,
                             dtype=dtype)
         self.nin_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                              if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(silu(_gn(x, self.norm1)))
-        h = self.conv2(silu(_gn(h, self.norm2)))
+        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -75,10 +110,11 @@ class ResnetBlock(nn.Module):
 class AttnBlock(nn.Module):
     """Single-head self-attention over the spatial grid + residual."""
 
-    def __init__(self, channels: int, use_flash: bool = False, dtype=None):
+    def __init__(self, channels: int, use_flash: bool = False, dtype=None,
+                 fused_gn: bool = False):
         super().__init__()
         self.use_flash = use_flash
-        self.norm = Norm(channels)
+        self.norm = VAEGroupNorm(channels, fused_gn)
         self.q = Conv2d(channels, channels, 1, dtype=dtype)
         self.k = Conv2d(channels, channels, 1, dtype=dtype)
         self.v = Conv2d(channels, channels, 1, dtype=dtype)
@@ -86,7 +122,7 @@ class AttnBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hh, ww, c = x.shape
-        h = _gn(x, self.norm)
+        h = self.norm(x)
         q = self.q(h).reshape(b, hh * ww, c)
         k = self.k(h).reshape(b, hh * ww, c)
         v = self.v(h).reshape(b, hh * ww, c)
@@ -120,7 +156,7 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: AutoencoderConfig):
         super().__init__()
-        comp = cfg.dtype
+        comp, fgn = cfg.dtype, cfg.use_fused_groupnorm
         self.conv_in = Conv2d(cfg.in_channels, cfg.ch, 3, padding=1,
                               dtype=comp)
         self._plan = []
@@ -130,23 +166,25 @@ class Encoder(nn.Module):
             block_out = cfg.ch * mult
             for i_block in range(cfg.num_res_blocks):
                 name = f"down_{i_level}_block_{i_block}"
-                self.add_module(name, ResnetBlock(block_in, block_out, comp))
+                self.add_module(name, ResnetBlock(block_in, block_out, comp,
+                                                  fgn))
                 self._plan.append(name)
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
                     name = f"down_{i_level}_attn_{i_block}"
                     self.add_module(name, AttnBlock(
-                        block_out, cfg.use_flash_attention, comp))
+                        block_out, cfg.use_flash_attention, comp, fgn))
                     self._plan.append(name)
             if i_level != len(cfg.ch_mult) - 1:
                 name = f"down_{i_level}_downsample"
                 self.add_module(name, Downsample(block_out, comp))
                 self._plan.append(name)
                 curr_res //= 2
-        self.mid_block_1 = ResnetBlock(block_in, block_in, comp)
-        self.mid_attn_1 = AttnBlock(block_in, cfg.use_flash_attention, comp)
-        self.mid_block_2 = ResnetBlock(block_in, block_in, comp)
-        self.norm_out = Norm(block_in)
+        self.mid_block_1 = ResnetBlock(block_in, block_in, comp, fgn)
+        self.mid_attn_1 = AttnBlock(block_in, cfg.use_flash_attention, comp,
+                                    fgn)
+        self.mid_block_2 = ResnetBlock(block_in, block_in, comp, fgn)
+        self.norm_out = VAEGroupNorm(block_in, fgn, with_silu=True)
         # mean and log-variance (the reference's double_z, always on here)
         self.conv_out = Conv2d(block_in, 2 * cfg.z_channels, 3, padding=1,
                                dtype=comp)
@@ -156,7 +194,7 @@ class Encoder(nn.Module):
         for name in self._plan:
             h = getattr(self, name)(h)
         h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
-        return self.conv_out(silu(_gn(h, self.norm_out))).float()
+        return self.conv_out(self.norm_out(h)).float()
 
 
 class Decoder(nn.Module):
@@ -165,34 +203,36 @@ class Decoder(nn.Module):
     def __init__(self, cfg: AutoencoderConfig):
         super().__init__()
         self.config = cfg
-        comp = cfg.dtype
+        comp, fgn = cfg.dtype, cfg.use_fused_groupnorm
         num_res = len(cfg.ch_mult)
         block_in = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = Conv2d(cfg.z_channels, block_in, 3, padding=1,
                               dtype=comp)
-        self.mid_block_1 = ResnetBlock(block_in, block_in, comp)
-        self.mid_attn_1 = AttnBlock(block_in, cfg.use_flash_attention, comp)
-        self.mid_block_2 = ResnetBlock(block_in, block_in, comp)
+        self.mid_block_1 = ResnetBlock(block_in, block_in, comp, fgn)
+        self.mid_attn_1 = AttnBlock(block_in, cfg.use_flash_attention, comp,
+                                    fgn)
+        self.mid_block_2 = ResnetBlock(block_in, block_in, comp, fgn)
         self._plan = []
         curr_res = cfg.resolution // 2 ** (num_res - 1)
         for i_level in reversed(range(num_res)):
             block_out = cfg.ch * cfg.ch_mult[i_level]
             for i_block in range(cfg.num_res_blocks + 1):
                 name = f"up_{i_level}_block_{i_block}"
-                self.add_module(name, ResnetBlock(block_in, block_out, comp))
+                self.add_module(name, ResnetBlock(block_in, block_out, comp,
+                                                  fgn))
                 self._plan.append(name)
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
                     name = f"up_{i_level}_attn_{i_block}"
                     self.add_module(name, AttnBlock(
-                        block_out, cfg.use_flash_attention, comp))
+                        block_out, cfg.use_flash_attention, comp, fgn))
                     self._plan.append(name)
             if i_level != 0:
                 name = f"up_{i_level}_upsample"
                 self.add_module(name, Upsample(block_out, comp))
                 self._plan.append(name)
                 curr_res *= 2
-        self.norm_out = Norm(block_in)
+        self.norm_out = VAEGroupNorm(block_in, fgn, with_silu=True)
         self.conv_out = Conv2d(block_in, cfg.out_ch, 3, padding=1, dtype=comp)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
@@ -200,8 +240,7 @@ class Decoder(nn.Module):
         h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
         for name in self._plan:
             h = getattr(self, name)(h)
-        h = self.conv_out(silu(_gn(h, self.norm_out)))
-        return h.float()
+        return self.conv_out(self.norm_out(h)).float()
 
 
 class DiagonalGaussian:

@@ -50,6 +50,13 @@ SIGNATURES = {
     "upgpt_flash_backward_dkv": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # x, scale, shift, out, N, HW, C, G, eps, with_silu, is_bf16, stream
     "upgpt_fused_group_norm": [P, P, P, P, I, I, I, I, F, I, I, P],
+    # x, ws, out, N, HW, C, G, chunks, eps, is_bf16, stream
+    "upgpt_gn_stats": [P, P, P, I, I, I, I, I, F, I, P],
+    # x, stats, scale, shift, out, N, HW, C, with_silu, is_bf16, stream
+    "upgpt_gn_apply": [P, P, P, P, P, I, I, I, I, I, P],
+    # x, gamma, beta, w, conv bias, out, ws, coef, N, H, W, C, O, G, chunks,
+    # eps, is_bf16, stream
+    "upgpt_fused_resblock": ([P] * 8 + [I] * 7 + [F, I, P]),
     "upgpt_fused_transformer_block": (
         [P, P]                      # x, out
         + [P, P, P, P]              # gn w/b, proj_in w/b
