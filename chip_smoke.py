@@ -12,7 +12,8 @@ CUDA toolkit. It
    shapes the three paths below give it (sampling at batch 8, training at
    batch 12, the chain at batch 4), and times the kernel, the plain version
    and, where one PyTorch call computes the same function, that call
-   (`library_ms`, a yardstick the port never calls);
+   (`library_ms`, a yardstick the port never calls); the flash backward
+   also at (4, 8, 3072, 64), which JAX's gate admits and no path runs;
 3. sampling: builds interp_256 at full width in bf16 with every parameter
    re-drawn from a seeded generator (std 1/sqrt(fan_in), nothing left at
    zero), checks the kernel path against the plain path end to end (one
@@ -36,6 +37,9 @@ CUDA toolkit. It
    launches against the counts the two models' structure gives;
 6. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
+
+On every path bf16 attention must run the tensor-core flash kernels: the
+counts expect no launch of their float32 FMA instantiations.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs one card and imports nothing of JAX.
@@ -275,33 +279,57 @@ def kernel_checks(dev) -> dict:
                                             lib_scale, lib_bias, eps))))
         tiled_checks(cases, randn)
         resblock_checks(cases, randn, g)
-    # K4 at the ds1 recompute of the training path
-    shape = (TRAIN_BATCH, 8, 768, 28)
-    bh, t, d = shape[0] * shape[1], shape[2], shape[3]
-    q, k, v, do = (randn(shape).bfloat16() for _ in range(4))
-    o = fa._reference_attention(q, k, v)
-    _, lse, di = fa._reference_backward_dq(q, k, v, o, do)
-    lq, lk, lv = (a.detach().clone().requires_grad_() for a in (q, k, v))
-    lout = F.scaled_dot_product_attention(lq, lk, lv)
-
-    def library_backward():
-        return torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)
-
-    stats = 2 * bh * t * 4
-    cases["flash_backward_dq"].append(_compare(
-        "flash_backward_dq", shape, "training",
-        lambda: fa.flash_backward_dq(q, k, v, o, do),
-        lambda: fa._reference_backward_dq(q, k, v, o, do),
-        (6 * bh * t * t * d, 2 * 6 * bh * t * d + stats, PEAK_BF16),
-        library_backward))
-    # no one library call computes pass 2 alone: the backward above gives
-    # dq, dk and dv together and stands on pass 1's line
-    cases["flash_backward_dkv"].append(_compare(
-        "flash_backward_dkv", shape, "training",
-        lambda: fa.flash_backward_dkv(q, k, v, do, lse, di),
-        lambda: fa._reference_backward_dkv(q, k, v, do, lse, di),
-        (8 * bh * t * t * d, 2 * 6 * bh * t * d + stats, PEAK_BF16)))
+    backward_checks(cases, randn)
     return cases
+
+
+def backward_checks(cases, randn) -> None:
+    """K4 at the ds1 recompute of the training path, and at the upscale
+    net's ds2 (4, 8, 3072, 64), which JAX's backward condition admits in
+    bf16 and no path of the port trains yet ("none"). No one library call
+    computes a pass alone: the `scaled_dot_product_attention` backward (dq,
+    dk and dv together) stands on pass 1's line, and dQ + dK/dV is timed as
+    a pair beside it over 200 calls, so that the host's part is small."""
+    from upgpt_torch.ops import flash_attention as fa
+
+    for shape, path in [((TRAIN_BATCH, 8, 768, 28), "training"),
+                        ((CHAIN_BATCH, 8, 3072, 64), "none")]:
+        bh, t, d = shape[0] * shape[1], shape[2], shape[3]
+        q, k, v, do = (randn(shape).bfloat16() for _ in range(4))
+        o = fa._reference_attention(q, k, v)
+        _, lse, di = fa._reference_backward_dq(q, k, v, o, do)
+        lq, lk, lv = (a.detach().clone().requires_grad_() for a in (q, k, v))
+        lout = F.scaled_dot_product_attention(lq, lk, lv)
+
+        def library_backward():
+            return torch.autograd.grad(lout, (lq, lk, lv), do,
+                                       retain_graph=True)
+
+        def pair():
+            dq, lse_, di_ = fa.flash_backward_dq(q, k, v, o, do)
+            return (dq,) + fa.flash_backward_dkv(q, k, v, do, lse_, di_)
+
+        stats = 2 * bh * t * 4
+        row = _compare(
+            "flash_backward_dq", shape, path,
+            lambda: fa.flash_backward_dq(q, k, v, o, do),
+            lambda: fa._reference_backward_dq(q, k, v, o, do),
+            (6 * bh * t * t * d, 2 * 6 * bh * t * d + stats, PEAK_BF16),
+            library_backward)
+        row["pair_ms"] = _time_ms(pair, 200)
+        row["pair_library_ms"] = _time_ms(library_backward, 200)
+        print(f"flash backward dQ + dK/dV {shape} [{path}]: "
+              f"{row['pair_ms']:.4f} ms, one scaled_dot_product_attention "
+              f"backward {row['pair_library_ms']:.4f} ms (200 calls each)",
+              flush=True)
+        cases["flash_backward_dq"].append(row)
+        cases["flash_backward_dkv"].append(_compare(
+            "flash_backward_dkv", shape, path,
+            lambda: fa.flash_backward_dkv(q, k, v, do, lse, di),
+            lambda: fa._reference_backward_dkv(q, k, v, do, lse, di),
+            (8 * bh * t * t * d, 2 * 6 * bh * t * d + stats, PEAK_BF16)))
+        del q, k, v, do, o, lse, di, lq, lk, lv, lout
+        torch.cuda.empty_cache()
 
 
 def tiled_checks(cases, randn) -> None:
@@ -480,19 +508,29 @@ def _counters():
 
 def _routes():
     """The counted routes away from a kernel: (key, function, attribute):
-    the flash backward's plain autograd beyond its gate, fused GroupNorms
-    and level-2 ResBlock half-steps that their gates send to the plain
-    path."""
+    the flash forward's and backward's FMA instantiations (float32, and
+    bf16 beyond D = 128 in the backward), which no path should reach, the
+    flash backward's plain autograd beyond its gate, fused GroupNorms and
+    level-2 ResBlock half-steps that their gates send to the plain path."""
     from upgpt_torch.ops import flash_attention as fa
     from upgpt_torch.ops import fused_gn as fg
     from upgpt_torch.ops import fused_resblock as frb
 
-    return [("flash_reference_backwards", fa.flash_attention,
+    return [("flash_attention_fma", fa.flash_attention, "fma_launches"),
+            ("flash_backward_dq_fma", fa.flash_backward_dq, "fma_launches"),
+            ("flash_backward_dkv_fma", fa.flash_backward_dkv,
+             "fma_launches"),
+            ("flash_reference_backwards", fa.flash_attention,
              "reference_backwards"),
             ("fused_group_norm_plain_routes", fg.fused_group_norm,
              "plain_routes"),
             ("fused_resblock_plain_routes", frb.fused_gn_silu_conv,
              "plain_routes")]
+
+
+# every path runs bf16: no launch of the flash kernels' FMA instantiations
+_NO_FMA = {"flash_attention_fma": 0, "flash_backward_dq_fma": 0,
+           "flash_backward_dkv_fma": 0}
 
 
 def _reset_counts() -> None:
@@ -586,7 +624,7 @@ def slice_run(dev, card: str) -> dict:
                 "fused_group_norm": 0, "tiled_group_norm": 0,
                 "fused_resblock": 0, "flash_reference_backwards": 0,
                 "fused_group_norm_plain_routes": 0,
-                "fused_resblock_plain_routes": 0}
+                "fused_resblock_plain_routes": 0, **_NO_FMA}
     if any(c != expected for c in counts):
         raise RuntimeError(f"sampling launch counts {counts}, expected "
                            f"{expected} per run")
@@ -645,7 +683,7 @@ def expected_train_counts(model) -> dict:
             "fused_group_norm": gn, "tiled_group_norm": 0,
             "fused_resblock": 0, "flash_reference_backwards": 0,
             "fused_group_norm_plain_routes": len(norms) - gn,
-            "fused_resblock_plain_routes": 0}
+            "fused_resblock_plain_routes": 0, **_NO_FMA}
 
 
 def train_run(dev, card: str) -> dict:
@@ -836,7 +874,7 @@ def expected_sampling_counts(model, b: int, tk: int) -> dict:
         vcfg.use_flash_attention and flash_attention_qualifies(
             b, 1, h * w, h * w, c_mid, model.vae.decoder.conv_in.weight.dtype))
     counts.update(flash_backward_dq=0, flash_backward_dkv=0,
-                  flash_reference_backwards=0)
+                  flash_reference_backwards=0, **_NO_FMA)
     return counts
 
 

@@ -44,19 +44,22 @@ import chip_smoke
 
 STEPS = 50
 
-# (kind, test on the lower-cased kernel name), first match wins
+# (kind, test on the lower-cased kernel name), first match wins; the
+# optimizer's multi_tensor_apply_kernel comes before K6's apply_kernel
 KINDS = [
-    ("attention (csrc, K1 and flash)", lambda n: "attention_kernel" in n),
+    ("optimizer and EMA (foreach)", lambda n: "multi_tensor" in n),
+    ("attention (csrc, K1 and flash)",
+     lambda n: "attention_mma_kernel" in n or "attention_fma_kernel" in n),
     ("K1 GEMMs (csrc)", lambda n: "gemm_kernel<" in n),
     ("K1 GroupNorm stats (csrc)", lambda n: "gn_stats_kernel" in n),
-    ("flash backward K4 (csrc)", lambda n: "dq_kernel<" in n
-     or "dkv_kernel<" in n),
+    ("flash backward K4 (csrc)",
+     lambda n: any(s in n for s in ("dq_mma_kernel", "dkv_mma_kernel",
+                                    "dq_fma_kernel", "dkv_fma_kernel"))),
     ("GroupNorm+SiLU K5 (csrc)", lambda n: "gn_kernel<" in n),
     ("GroupNorm stats K6/K7 (csrc)", lambda n: "partial_kernel<" in n
      or "finalize_kernel" in n),
     ("GroupNorm apply K6 (csrc)", lambda n: "apply_kernel<" in n),
     ("GN+SiLU+conv K7 (csrc)", lambda n: "conv_kernel<" in n),
-    ("optimizer and EMA (foreach)", lambda n: "multi_tensor" in n),
     ("memcpy / memset", lambda n: n.startswith(("memcpy", "memset"))),
     ("convolutions (cuDNN)",
      lambda n: any(s in n for s in ("conv", "implicit", "fprop", "cudnn"))),

@@ -38,21 +38,37 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def _routes(*fns):
+    """(tensor-core, FMA) launch counts of each wrapper."""
+    return [(f.launches, f.fma_launches) for f in fns]
+
+
+def _moved(before, after, route):
+    """Each wrapper moved its counter of `route` by one, the other not."""
+    step = (1, 0) if route == "mma" else (0, 1)
+    return all((a[0] - b[0], a[1] - b[1]) == step
+               for a, b in zip(after, before))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,tol", [
     ((2, 1, 768, 512), torch.bfloat16, 2e-2),   # VAE mid AttnBlock
     ((1, 8, 3072, 64), torch.bfloat16, 2e-2),   # 512px upscale
     ((1, 8, 3072, 28), torch.bfloat16, 2e-2),   # 512px mm_512 ds1
+    ((2, 8, 192, 56), torch.bfloat16, 2e-2),    # K1's ds2 head width
+    ((1, 2, 200, 28), torch.bfloat16, 2e-2),    # ragged T
     ((1, 2, 512, 28), torch.float32, 1e-5),
 ])
 def test_flash_kernel_matches_plain(dev, shape, dtype, tol):
+    # bf16 takes the tensor-core kernel, float32 the FMA kernel
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=dtype)
                for _ in range(3))
-    before = fa.flash_attention.launches
+    before = _routes(fa.flash_attention)
     got = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
+    route = "mma" if dtype == torch.bfloat16 else "fma"
+    assert _moved(before, _routes(fa.flash_attention), route)
     assert _rel(got, fa._reference_attention(q, k, v)) < tol
 
 
@@ -66,6 +82,11 @@ def test_flash_kernel_rejects_what_it_does_not_take(dev):
         fa.flash_attention(q, q, q)
     q = torch.zeros(1, 1, 64, 512, device=dev).transpose(2, 3)
     with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    # the float32 kernel's score tile bounds T (the C side refuses the
+    # launch); bf16 has no bound
+    q = torch.zeros(1, 1, 8192, 64, device=dev)
+    with pytest.raises(RuntimeError):
         fa.flash_attention(q, q, q)
 
 
@@ -178,22 +199,29 @@ def test_fused_kernel_with_context_matches_twin(dev, b, t, c, heads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,tol", [
-    ((12, 8, 768, 28), torch.bfloat16, 2e-2),  # 256px training ds1
-    ((2, 1, 768, 512), torch.bfloat16, 2e-2),  # VAE mid AttnBlock
+    ((12, 8, 768, 28), torch.bfloat16, 2e-2),   # 256px training ds1
+    ((4, 8, 3072, 64), torch.bfloat16, 2e-2),   # upscale ds2, in JAX's gate
+    ((1, 2, 200, 28), torch.bfloat16, 2e-2),    # ragged T
+    ((1, 2, 256, 128), torch.bfloat16, 2e-2),   # the widest tensor-core D
+    ((2, 1, 768, 512), torch.bfloat16, 2e-2),   # VAE mid AttnBlock: FMA
     ((1, 2, 512, 28), torch.float32, 1e-5),
     ((1, 2, 200, 28), torch.float32, 1e-5),   # ragged T
 ])
 def test_flash_backward_kernels_match_twin(dev, shape, dtype, tol):
+    # bf16 up to D = 128 takes the tensor-core passes, the rest the FMA ones
     g = torch.Generator(device=dev).manual_seed(3)
     q, k, v, do = (torch.randn(shape, generator=g, device=dev, dtype=dtype)
                    for _ in range(4))
     o = fa._reference_attention(q, k, v)
-    before = (fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+    counters = (fa.flash_backward_dq, fa.flash_backward_dkv)
+    before = _routes(*counters)
     dq, lse, di = fa.flash_backward_dq(q, k, v, o, do)
     dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, di)
     torch.cuda.synchronize()
-    assert (fa.flash_backward_dq.launches,
-            fa.flash_backward_dkv.launches) == (before[0] + 1, before[1] + 1)
+    route = fa._backward_route(shape[2], shape[3], dtype)
+    assert route == ("mma" if dtype == torch.bfloat16 and shape[3] <= 128
+                     else "fma")
+    assert _moved(before, _routes(*counters), route)
     wdq, wlse, wdi = fa._reference_backward_dq(q, k, v, o, do)
     wdk, wdv = fa._reference_backward_dkv(q, k, v, do, wlse, wdi)
     for got, want in ((lse, wlse), (di, wdi), (dq, wdq), (dk, wdk),
@@ -206,14 +234,13 @@ def test_flash_attention_gradient_runs_the_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(4)
     q, k, v = (torch.randn(2, 4, 768, 28, generator=g, device=dev)
                .bfloat16().requires_grad_() for _ in range(3))
-    before = (fa.flash_attention.launches, fa.flash_backward_dq.launches,
-              fa.flash_backward_dkv.launches,
-              fa.flash_attention.reference_backwards)
+    counters = (fa.flash_attention, fa.flash_backward_dq,
+                fa.flash_backward_dkv)
+    before = _routes(*counters)
+    falls = fa.flash_attention.reference_backwards
     fa.flash_attention(q, k, v).float().square().sum().backward()
-    assert (fa.flash_attention.launches, fa.flash_backward_dq.launches,
-            fa.flash_backward_dkv.launches,
-            fa.flash_attention.reference_backwards) == (
-                before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    assert _moved(before, _routes(*counters), "mma")
+    assert fa.flash_attention.reference_backwards == falls
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
@@ -225,7 +252,10 @@ def test_flash_backward_rejects_what_it_does_not_take(dev):
     q = torch.zeros(1, 1, 64, 512, device=dev).transpose(2, 3)
     with pytest.raises(ValueError):
         fa.flash_backward_dq(q, q, q, q, q)
-    q = torch.zeros(1, 1, 3072, 64, device=dev)  # past the gate
+    # float32 at T = 4096: JAX's condition refuses it (17.0 MiB of VMEM by
+    # its arithmetic) and the FMA passes' score row outgrows shared memory
+    q = torch.zeros(1, 1, 4096, 64, device=dev)
+    assert not fa.flash_backward_fits(4096, 64, torch.float32)
     with pytest.raises(ValueError):
         fa.flash_backward_dq(q, q, q, q, q)
 

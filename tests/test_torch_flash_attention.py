@@ -2,11 +2,13 @@
 
 On CPU the port's `flash_attention` runs its plain version; the JAX side
 runs its Pallas kernel in interpret mode, as tests/test_flash_attention.py
-does. float32 throughout: both compute exact softmax attention, so they
-agree to float32 rounding of the score and value reductions (2e-5).
-The CUDA kernel itself is held against the plain version on a card by
-tests/test_torch_cuda.py.
+does. float32 where the point is the function: both compute exact softmax
+attention, so they agree to float32 rounding of the score and value
+reductions (2e-5). bf16 where the point is the tensor-core forward's
+rounding order (`_tiled_reference_attention`). The CUDA kernels themselves
+are held against the plain versions on a card by tests/test_torch_cuda.py.
 """
+import math
 
 import numpy as np
 import pytest
@@ -76,8 +78,10 @@ def test_vae_attn_block_with_flash_matches_jax():
 def test_flash_backward_is_not_ported():
     # Named when the backward raised. It now checks that the backward is the
     # ported two-pass one (plain versions on CPU) and not plain autograd of
-    # the forward, and that both give the same gradients in float32.
-    q, k, v = (torch.randn(1, 1, 8, 4, requires_grad=True) for _ in range(3))
+    # the forward, and that both give the same gradients in float32. T is a
+    # multiple of 256, as JAX's backward dispatch condition asks.
+    q, k, v = (torch.randn(1, 1, 256, 8, requires_grad=True)
+               for _ in range(3))
     falls = tflash.flash_attention.reference_backwards
     out = tflash.flash_attention(q, k, v)
     assert out.grad_fn.name() == "_FlashForwardBackward"
@@ -131,8 +135,10 @@ def test_flash_backward_statistics():
 
 
 def test_flash_backward_beyond_the_gate_is_plain_autograd():
-    shape = (1, 1, 3072, 8)  # T = 3072: past the Hopper gate
-    assert not tflash.flash_backward_fits(3072, 8)
+    # float32 at T = 3072: JAX's VMEM arithmetic gives 13.0 MiB (D pads to
+    # 128 lanes) against its 12 MiB budget, so JAX takes jax.vjp here
+    shape = (1, 1, 3072, 8)
+    assert not tflash.flash_backward_fits(3072, 8, torch.float32)
     leaves = [torch.from_numpy(a).requires_grad_() for a in _qkv(shape, 7)]
     before = tflash.flash_attention.reference_backwards
     got = torch.autograd.grad(tflash.flash_attention(*leaves).sum(), leaves)
@@ -143,12 +149,89 @@ def test_flash_backward_beyond_the_gate_is_plain_autograd():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("t,d,ok", [
-    (768, 28, True),     # the 256px training path's ds1 self-attention
-    (768, 512, True),    # the VAE's mid AttnBlock
-    (2880, 64, True),
-    (2944, 64, False),
-    (3072, 32, False),   # 512px ds1: plain autograd until a wider kernel
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("t,d", [
+    (768, 28),    # the 256px training path's ds1 self-attention
+    (768, 512),   # the VAE's mid AttnBlock
+    (2880, 64),   # not a multiple of 256
+    (3072, 64),   # the upscale net's ds2: bf16 only
+    (3072, 32),   # 512px ds1: bf16 only
+    (1536, 512),  # bf16's widest T at D = 512
+    (1792, 512),
+    (3072, 8),    # float32: 13.0 MiB
 ])
-def test_backward_gate(t, d, ok):
-    assert tflash.flash_backward_fits(t, d) is ok
+def test_backward_gate(t, d, dtype):
+    """`flash_backward_fits` is JAX's backward dispatch condition."""
+    want = (t <= 4096 and t % 256 == 0 and jflash._bwd_blocked_fits(
+        t, d, jnp.dtype(dtype).itemsize))
+    assert tflash.flash_backward_fits(t, d, getattr(torch, dtype)) is want
+
+
+def test_every_admitted_backward_shape_has_a_kernel():
+    """Every shape JAX's condition admits has a backward instantiation on
+    the card: the tensor-core passes for bf16 up to D = 128, the FMA passes
+    (bounded by shared memory) for float32 and for bf16 beyond D = 128."""
+    admitted = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (8, 28, 32, 56, 64, 96, 128, 129, 256, 320, 512):
+            for t in range(256, 4097, 256):
+                if not tflash.flash_backward_fits(t, d, dtype):
+                    continue
+                admitted += 1
+                route = tflash._backward_route(t, d, dtype)
+                want = ("mma" if dtype == torch.bfloat16 and d <= 128
+                        else "fma")
+                assert route == want, (t, d, dtype, route)
+    assert admitted > 100
+    # the FMA passes are bounded, the tensor-core passes are not
+    assert tflash._backward_route(4096, 64, torch.float32) is None
+    assert tflash._backward_route(8192, 64, torch.bfloat16) == "mma"
+
+
+def _bf16_step(x: np.ndarray) -> float:
+    """One bf16 rounding step (8 significant bits) at max|x|."""
+    return 2.0 ** (math.floor(math.log2(np.abs(x).max())) - 7)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 512, 28), (1, 1, 1024, 64)])
+def test_tiled_forward_matches_jax_kernel_in_bf16(shape):
+    """The tensor-core forward's algorithm (64-key tiles, online exp2
+    softmax, P rounded to bf16 against the running max) against JAX's
+    Pallas forward, which rounds P against the row's final max, both in
+    bf16. Each rounds its output to bf16 once, and P's roundings differ by
+    at most one bf16 step per element, which the value product averages
+    over the keys: at most two bf16 steps at max|ref| (one measured)."""
+    q, k, v = _qkv(shape, 8)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jflash.flash_attention(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+        ).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = tflash._tiled_reference_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    step = _bf16_step(want)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2 * step,
+                               rtol=0)
+    ref = tflash._reference_attention(tq, tk, tv).float().numpy()
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=2 * step,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("tq,tk,d", [(200, 87, 28), (192, 200, 56)])
+def test_tiled_forward_ragged_keys(tq, tk, d):
+    """Key counts that leave the last 64-key tile partly empty, as K1's
+    cross-attention (87 context tokens) does: against the plain version in
+    bf16 (two bf16 steps, as above) and in float32, where the two are the
+    same function summed in another order (2e-6)."""
+    rng = np.random.default_rng(9)
+    q = rng.normal(size=(1, 2, tq, d)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 2, tk, d)).astype(np.float32)
+            for _ in range(2))
+    tq_, tk_, tv_ = (torch.from_numpy(a) for a in (q, k, v))
+    got = tflash._tiled_reference_attention(tq_, tk_, tv_)
+    want = tflash._reference_attention(tq_, tk_, tv_)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-6)
+    bq, bk, bv = (x.bfloat16() for x in (tq_, tk_, tv_))
+    got = tflash._tiled_reference_attention(bq, bk, bv).float().numpy()
+    want = tflash._reference_attention(bq, bk, bv).float().numpy()
+    np.testing.assert_allclose(got, want, atol=2 * _bf16_step(want), rtol=0)

@@ -1,15 +1,15 @@
 // Shared attention routine of the port's two kernels.
 //
-// softmax(Q K^T * scale) V for one (batch, head) per grid column, with Q, K,
-// V and O addressed through element strides, so the same routine serves
-// contiguous (B, H, T, D) flash inputs and packed (B, T, C) transformer
-// activations whose head h sits at column offset h * D.
-// Defined in flash_attention.cu.
+// softmax(Q K^T * scale) V over every (batch, head), with Q, K, V and O
+// addressed through element strides, so the same routine serves contiguous
+// (B, H, T, D) flash inputs and packed (B, T, C) transformer activations
+// whose head h sits at column offset h * D. bf16 runs the tensor-core
+// kernel (any T, D <= 512), float32 the FMA kernel (T bounded by its score
+// tile in shared memory). Defined in flash_attention.cu.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stddef.h>
 
 struct AttnArgs {
   const void* q;
@@ -27,6 +27,3 @@ struct AttnArgs {
 // is_bf16: 1 for bfloat16 tensors, 0 for float32. Returns the launch status.
 cudaError_t upgpt_attention_launch(const AttnArgs& a, int is_bf16,
                                    cudaStream_t stream);
-
-// Dynamic shared memory one block needs for `bq` query rows.
-size_t upgpt_attention_smem_bytes(int bq, int tk, int d);
