@@ -10,10 +10,14 @@ CUDA toolkit. It
    source, in parallel, sm_90a);
 2. holds each kernel against its plain PyTorch version in bf16 at the
    shapes the three paths below give it (sampling at batch 8, training at
-   batch 12, the chain at batch 4), and times the kernel, the plain version
-   and, where one PyTorch call computes the same function, that call
-   (`library_ms`, a yardstick the port never calls); the flash backward
-   also at (4, 8, 3072, 64), which JAX's gate admits and no path runs;
+   batch 12, the chain at batch 4; the half-step kernel after step 5, at
+   every (shape, O) the chain run launched it at, with the launches its
+   counter recorded there), and times the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call (`library_ms`, a yardstick the port never calls;
+   for the transformer block, which no one call computes, its products as
+   torch.matmul, `gemm_library_ms`); the flash backward also at
+   (4, 8, 3072, 64), which JAX's gate admits and no path runs;
 3. sampling: builds interp_256 at full width in bf16 with every parameter
    re-drawn from a seeded generator (std 1/sqrt(fan_in), nothing left at
    zero), checks the kernel path against the plain path end to end (one
@@ -34,12 +38,14 @@ CUDA toolkit. It
    U-Net eval and on the 512x384 image of a 4-step eta-0 chain at batch 2,
    then runs DDIM-50 eta 1 through both stages at batch 4 to uint8
    (4, 512, 384, 3): one warm-up and two timed runs, counting kernel
-   launches against the counts the two models' structure gives;
+   launches against the counts the two models' structure gives, and the
+   half-step kernel's launches by (shape, O);
 6. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
 On every path bf16 attention must run the tensor-core flash kernels: the
-counts expect no launch of their float32 FMA instantiations.
+counts expect no launch of their float32 FMA instantiations, nor of the
+half-step kernel's float32 one.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs one card and imports nothing of JAX.
@@ -123,6 +129,37 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters: int = 20):
+    """Device time of one call: `iters` calls captured in a CUDA graph and
+    replayed, so the host's per-call cost (Python, argument checks, the
+    launch itself) drops out of the figure that `_time_ms` measures with
+    it. None, with the reason printed, where a call cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as err:
+        print(f"  (not captured in a CUDA graph: {err})", flush=True)
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
 def _random_block(c: int, ctx_dim: int, g: torch.Generator) -> dict:
     """bf16 SpatialTransformer parameters, std 1/sqrt(fan_in)."""
     dev = g.device
@@ -176,18 +213,28 @@ def _compare(name, shape, path, kernel, plain, work, library=None):
         err, rel = max(err, e), max(rel, e / b.abs().max().item())
     ms, plain_ms = _time_ms(kernel), _time_ms(plain)
     library_ms = None if library is None else _time_ms(library)
+    device_ms = _graph_ms(kernel)
+    # the library's device time where it is a forward call (an autograd
+    # backward is not captured)
+    library_device_ms = (None if library is None or "backward" in name
+                         else _graph_ms(library))
     bound_ms, bound_by = _bound(*work)
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    dev = ("" if device_ms is None else
+           f"; in a CUDA graph kernel {device_ms:.4f} ms" +
+           ("" if library_device_ms is None
+            else f", library {library_device_ms:.4f} ms"))
     print(f"{name} {shape} [{path}]: max|d|/max|ref| {rel:.3e} (max|d| "
           f"{err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"bound {bound_ms:.4f} ms ({bound_by}){dev}", flush=True)
     if rel > KERNEL_REL_TOL:
         raise RuntimeError(f"{name} {shape}: kernel disagrees with plain "
                            f"({rel:.3e} > {KERNEL_REL_TOL})")
     return {"shape": list(shape), "path": path, "max_abs_err": err,
             "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "device_ms": device_ms,
+            "library_device_ms": library_device_ms}
 
 
 def _block_work(b, t, c, tk, ctx_dim=None):
@@ -204,6 +251,27 @@ def _block_work(b, t, c, tk, ctx_dim=None):
         flops += 4 * b * tk * ctx_dim * c
         nbytes += 2 * (b * tk * ctx_dim + 2 * c * ctx_dim)
     return flops, nbytes, PEAK_BF16
+
+
+def _block_gemm_library_ms(b, t, c, tk, ctx_dim, randn):
+    """K1's products alone as torch.matmul (cuBLAS) on the same shapes:
+    proj_in, packed QKV, to_out, cross q, to_out, GEGLU FF1 (both halves),
+    FF2 and proj_out over M = B*T rows, and with a context its K/V
+    projection: (eager ms, device ms). A yardstick only: no one PyTorch
+    call computes the block, and the port never calls these."""
+    m = b * t
+    shapes = [(m, c, c), (m, c, 3 * c), (m, c, c), (m, c, c), (m, c, c),
+              (m, c, 8 * c), (m, 4 * c, c), (m, c, c)]
+    if ctx_dim is not None:
+        shapes.append((b * tk, ctx_dim, 2 * c))
+    pairs = [(randn(rows, k).bfloat16(), randn(n, k).bfloat16())
+             for rows, k, n in shapes]
+
+    def products():
+        for a, w in pairs:
+            torch.matmul(a, w.t())
+
+    return _time_ms(products), _graph_ms(products)
 
 
 def kernel_checks(dev) -> dict:
@@ -232,11 +300,19 @@ def kernel_checks(dev) -> dict:
             else:
                 kw = {"context": randn(b, tk, 768).bfloat16()}
                 work = _block_work(b, t, c, tk, 768)
-            cases["fused_transformer_block"].append(_compare(
+            row = _compare(
                 f"fused_transformer_block[{variant}]", (b, t, c, 8, tk),
                 {"kv": "sampling", "ctx": "training"}.get(variant, "chain"),
                 lambda: ft.fused_transformer_block(x, p, 8, **kw),
-                lambda: ft.transformer_block_reference(x, p, 8, **kw), work))
+                lambda: ft.transformer_block_reference(x, p, 8, **kw), work)
+            row["gemm_library_ms"], row["gemm_library_device_ms"] = \
+                _block_gemm_library_ms(b, t, c, tk,
+                                       None if "kv" in kw else 768, randn)
+            print(f"  its {8 if 'kv' in kw else 9} products as torch.matmul: "
+                  f"{row['gemm_library_ms']:.4f} ms, in a CUDA graph "
+                  f"{row['gemm_library_device_ms']:.4f} ms (a yardstick "
+                  f"only)", flush=True)
+            cases["fused_transformer_block"].append(row)
         # flash forward: the VAE mid AttnBlock (decoder at the sampling
         # batch, encoder at the training batch), the ds1 self-attention the
         # training backward recomputes, and the upscale net's ds2
@@ -278,7 +354,6 @@ def kernel_checks(dev) -> dict:
                 lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32,
                                             lib_scale, lib_bias, eps))))
         tiled_checks(cases, randn)
-        resblock_checks(cases, randn, g)
     backward_checks(cases, randn)
     return cases
 
@@ -375,36 +450,41 @@ def tiled_checks(cases, randn) -> None:
         cases["tiled_group_norm"].append(row)
 
 
-def resblock_checks(cases, randn, g) -> None:
-    """K7 at the shapes the chain gives it: interp_256's ds1 half-step, its
-    widest concat and ds2, the upscale net's ds4; and one shape past the
-    JAX gate (the upscale net's ds1), on no path. Its library yardstick is
-    three calls (`F.group_norm`, `F.silu`, `F.conv2d` through cuDNN on the
+def resblock_checks(dev, chain_shapes: dict) -> list:
+    """K7 at every (shape, O) the chain run launched it at, each row with
+    the launches that run counted there, so that launches x ms sum to the
+    kernel's time in a run; and one shape past the JAX gate (the upscale
+    net's ds1), on no path. Its library yardstick is three calls
+    (`F.group_norm`, `F.silu`, `F.conv2d` through cuDNN on the
     channels-last view), as no one call computes the half-step."""
     from upgpt_torch.ops import fused_resblock as frb
 
-    dev = g.device
-    for shape, o, path in [((CHAIN_BATCH, 32, 24, 224), 224, "chain"),
-                           ((CHAIN_BATCH, 32, 24, 672), 224, "chain"),
-                           ((CHAIN_BATCH, 16, 12, 448), 448, "chain"),
-                           ((CHAIN_BATCH, 32, 24, 512), 512, "chain"),
-                           ((CHAIN_BATCH, 128, 96, 256), 256, "none")]:
+    g = torch.Generator(device=dev).manual_seed(7)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    shapes = [(key[:4], key[4], "chain", n)
+              for key, n in sorted(chain_shapes.items())]
+    shapes.append(((CHAIN_BATCH, 128, 96, 256), 256, "none", 0))
+    rows = []
+    for shape, o, path, runs in shapes:
         b, h, w, c = shape
         x = (2 * randn(shape) + 0.5).bfloat16()
         gs, gb = 1 + 0.1 * randn(c), 0.1 * randn(c)
-        wt = (torch.randn(o, c, 3, 3, generator=g, device=dev)
-              / math.sqrt(9 * c)).bfloat16()
+        wt = (randn(o, c, 3, 3) / math.sqrt(9 * c)).bfloat16()
         cb = (0.1 * randn(o)).bfloat16()
         lib_gs, lib_gb = gs.bfloat16(), gb.bfloat16()
-        cases["fused_resblock"].append(_compare(
-            "fused_resblock", shape + (o,), path,
-            lambda: frb.fused_gn_silu_conv(x, gs, gb, wt, cb, 32, 1e-5),
-            lambda: frb._reference(x, gs, gb, wt, cb, 32, 1e-5),
-            (2 * b * h * w * 9 * c * o,
-             b * h * w * (c + o) * 2 + 9 * c * o * 2, PEAK_BF16),
-            lambda: F.conv2d(F.silu(F.group_norm(
-                x.permute(0, 3, 1, 2), 32, lib_gs, lib_gb, 1e-5)),
-                wt, cb, padding=1)))
+        with torch.no_grad():
+            row = _compare(
+                "fused_resblock", shape + (o,), path,
+                lambda: frb.fused_gn_silu_conv(x, gs, gb, wt, cb, 32, 1e-5),
+                lambda: frb._reference(x, gs, gb, wt, cb, 32, 1e-5),
+                (2 * b * h * w * 9 * c * o,
+                 b * h * w * (c + o) * 2 + 9 * c * o * 2, PEAK_BF16),
+                lambda: F.conv2d(F.silu(F.group_norm(
+                    x.permute(0, 3, 1, 2), 32, lib_gs, lib_gb, 1e-5)),
+                    wt, cb, padding=1))
+        row["launches_per_chain_run"] = runs
+        rows.append(row)
+    return rows
 
 
 def resblock_gradient_check(dev) -> float:
@@ -509,7 +589,8 @@ def _counters():
 def _routes():
     """The counted routes away from a kernel: (key, function, attribute):
     the flash forward's and backward's FMA instantiations (float32, and
-    bf16 beyond D = 128 in the backward), which no path should reach, the
+    bf16 beyond D = 128 in the backward) and the half-step kernel's
+    float32 instantiation, which no path should reach, the
     flash backward's plain autograd beyond its gate, fused GroupNorms and
     level-2 ResBlock half-steps that their gates send to the plain path."""
     from upgpt_torch.ops import flash_attention as fa
@@ -525,17 +606,21 @@ def _routes():
             ("fused_group_norm_plain_routes", fg.fused_group_norm,
              "plain_routes"),
             ("fused_resblock_plain_routes", frb.fused_gn_silu_conv,
-             "plain_routes")]
+             "plain_routes"),
+            ("fused_resblock_fp32", frb.fused_gn_silu_conv,
+             "fp32_launches")]
 
 
 # every path runs bf16: no launch of the flash kernels' FMA instantiations
+# or of the half-step kernel's float32 one
 _NO_FMA = {"flash_attention_fma": 0, "flash_backward_dq_fma": 0,
-           "flash_backward_dkv_fma": 0}
+           "flash_backward_dkv_fma": 0, "fused_resblock_fp32": 0}
 
 
 def _reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
+    _counters()["fused_resblock"].launches_by_shape = {}
     for _, fn, attr in _routes():
         setattr(fn, attr, 0)
 
@@ -883,6 +968,7 @@ def chain_run(dev, card: str) -> dict:
         ChainedUpscalePipeline, prepare_lr_condition,
     )
     from upgpt_torch.models.unet import precompute_cross_kv
+    from upgpt_torch.ops import fused_resblock as frb
     from upgpt_torch.zoo import build_latent_diffusion
 
     def build(variant: str, kernels: bool):
@@ -953,7 +1039,7 @@ def chain_run(dev, card: str) -> dict:
     torch.cuda.synchronize()
     print(f"chain warm-up run: {time.perf_counter() - t0:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    times, counts = [], []
+    times, counts, by_shape = [], [], []
     for i in range(CHAIN_TIMED_RUNS):
         gen = torch.Generator(device=dev).manual_seed(40 + i)
         torch.cuda.synchronize()
@@ -963,6 +1049,7 @@ def chain_run(dev, card: str) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts.append(_read_counts())
+        by_shape.append(dict(frb.fused_gn_silu_conv.launches_by_shape))
         if tuple(out.shape) != (CHAIN_BATCH,) + image or (
                 out.dtype != torch.uint8):
             raise RuntimeError(f"chain output {tuple(out.shape)} {out.dtype}")
@@ -972,13 +1059,19 @@ def chain_run(dev, card: str) -> dict:
     if any(c != expected for c in counts):
         raise RuntimeError(f"chain launch counts {counts}, expected "
                            f"{expected} per run")
+    # K7's launches by (shape, O), counted where it launches: the same in
+    # every run, and adding up to its launches
+    if any(d != by_shape[0] for d in by_shape) or (
+            sum(by_shape[0].values()) != counts[0]["fused_resblock"]):
+        raise RuntimeError(f"chain K7 launches by shape {by_shape}")
     sec = min(times)
     print(f"chain DDIM-{STEPS} eta 1 (interp_256 -> upscale) batch "
           f"{CHAIN_BATCH} -> uint8 {tuple(out.shape)}: "
           f"{' '.join(f'{t:.4f}' for t in times)} s/batch, best {sec:.4f} "
           f"s/batch = {CHAIN_BATCH / sec:.4f} img/s on {card}; peak memory "
           f"{peak_gb:.3f} GiB; launches per run {counts[0]}", flush=True)
-    return {"launches": counts[0], "s_per_batch": times,
+    return {"launches": counts[0], "k7_by_shape": by_shape[0],
+            "s_per_batch": times,
             "img_per_s": CHAIN_BATCH / sec, "peak_memory_gib": peak_gb,
             **e2e}
 
@@ -1022,8 +1115,21 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
         "library_ms": None if None in libs else sum(libs),
         "cases": cases,
     }
+    # the same sums in device time (calls replayed from a CUDA graph)
+    dev = [c["device_ms"] for c in on_path]
+    entry["device_ms"] = None if None in dev else sum(dev)
     if name == "flash_attention":
         entry["also_replaces"] = "upgpt_tpu/ops/flash_attention.py:310"
+    if name == "fused_resblock":
+        # the chain's K7 time per run: each shape's time by its launches
+        entry["chain_run_ms"] = sum(c["ms"] * c["launches_per_chain_run"]
+                                    for c in on_path)
+        entry["chain_run_library_ms"] = sum(
+            c["library_ms"] * c["launches_per_chain_run"] for c in on_path)
+        if None not in dev:
+            entry["chain_run_device_ms"] = sum(
+                c["device_ms"] * c["launches_per_chain_run"]
+                for c in on_path)
     if name == "flash_backward_dq":
         entry["library_covers"] = "dq, dk and dv together"
     return entry
@@ -1057,6 +1163,8 @@ def main() -> None:
     training = train_run(dev, card)
     torch.cuda.empty_cache()
     chain = chain_run(dev, card)
+    torch.cuda.empty_cache()
+    cases["fused_resblock"] = resblock_checks(dev, chain.pop("k7_by_shape"))
 
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain}

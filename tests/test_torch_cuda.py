@@ -11,6 +11,7 @@ relative to max|plain|: 2e-2 in bf16, where both sides round the same
 intermediates but accumulate in different orders, and 1e-5 in float32.
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -22,6 +23,7 @@ from upgpt_torch.ops import flash_attention as fa  # noqa: E402
 from upgpt_torch.ops import fused_gn as fg  # noqa: E402
 from upgpt_torch.ops import fused_resblock as frb  # noqa: E402
 from upgpt_torch.ops import fused_transformer as ft  # noqa: E402
+from upgpt_torch.ops import gemm_plan as gp  # noqa: E402
 
 TK, CTX = 87, 768
 
@@ -369,13 +371,176 @@ def _resblock_inputs(shape, o, dtype, dev, seed=9):
 def test_fused_resblock_kernel_matches_twin(dev, shape, o, dtype, groups,
                                             tol):
     x, gs, gb, w, cb = _resblock_inputs(shape, o, dtype, dev)
-    before = frb.fused_gn_silu_conv.launches
+    before = _conv_routes()
     got = frb.fused_gn_silu_conv(x, gs, gb, w, cb, groups, 1e-5)
     torch.cuda.synchronize()
-    assert frb.fused_gn_silu_conv.launches == before + 1
+    # bf16 counts in `launches`, the float32 instantiation in its own count
+    step = (1, 0) if dtype == torch.bfloat16 else (0, 1)
+    assert tuple(a - b for a, b in zip(_conv_routes(), before)) == step
     assert got.shape == shape[:3] + (o,) and got.dtype == dtype
     want = frb._reference(x, gs, gb, w, cb, groups, 1e-5)
     assert _rel(got, want) < tol
+
+
+def _conv_routes():
+    f = frb.fused_gn_silu_conv
+    return f.launches, f.fp32_launches
+
+
+def _split_conv_plan(plan, split):
+    """The plan with its channel chunks split in two (or not at all)."""
+    per = plan.chunks if not split else -(-plan.chunks // 2)
+    return dataclasses.replace(plan, splits=-(-plan.chunks // per),
+                               chunks_per_split=per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o,dtype,split", [
+    ((4, 32, 24, 224), 224, torch.bfloat16, False),  # C = 224: a half chunk
+    ((4, 32, 24, 224), 224, torch.bfloat16, True),
+    ((4, 32, 24, 672), 224, torch.bfloat16, False),  # C = 672
+    ((4, 32, 24, 672), 224, torch.bfloat16, True),
+    ((4, 16, 12, 448), 448, torch.bfloat16, False),  # one image per tile
+    ((4, 16, 12, 448), 448, torch.bfloat16, True),
+    ((2, 7, 13, 200), 72, torch.bfloat16, True),     # C = 8 x 25, ragged O
+    ((1, 3, 300, 64), 64, torch.bfloat16, False),    # rows cut in segments
+    ((2, 9, 6, 136), 96, torch.float32, True),       # float32, split
+])
+def test_fused_resblock_schedules_match_twin(dev, shape, o, dtype, split,
+                                             monkeypatch):
+    """The conv kernel with its channel chunks split in two and unsplit, at
+    the chain's channel counts and at ragged shapes, against the twin."""
+    plan = _split_conv_plan(gp.plan_conv(shape, o, torch.finfo(dtype).bits
+                                         // 8), split)
+    assert (plan.splits > 1) == split
+    monkeypatch.setattr(gp, "cached_conv_plan",
+                        lambda *a: (plan, gp.int_array(plan.as_ints())))
+    x, gs, gb, w, cb = _resblock_inputs(shape, o, dtype, dev)
+    before = _conv_routes()
+    got = frb.fused_gn_silu_conv(x, gs, gb, w, cb, 32 if shape[-1] % 32 == 0
+                                 else 8, 1e-5)
+    torch.cuda.synchronize()
+    step = (1, 0) if dtype == torch.bfloat16 else (0, 1)
+    assert tuple(a - b for a, b in zip(_conv_routes(), before)) == step
+    want = frb._reference(x, gs, gb, w, cb, 32 if shape[-1] % 32 == 0 else 8,
+                          1e-5)
+    assert _rel(got, want) < (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def _split_products(plans, split):
+    """K1's plans with every streamed product's K split in two (or not)."""
+    out = []
+    for p in plans:
+        if p is not None and not p.prologue:
+            per = p.ksteps if not split else -(-p.ksteps // 2)
+            p = dataclasses.replace(p, splits=-(-p.ksteps // per),
+                                    steps_per_split=per)
+        out.append(p)
+    return (out, gp.int_array(gp.plan_array(out)),
+            gp.product_workspace(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,variant,split", [
+    (3, 250, 224, "kv", False),   # M = 750: no tile size divides it
+    (3, 250, 224, "kv", True),    # N = 224 and 672
+    (3, 250, 224, "ctx", True),
+    (2, 100, 448, "kv", False),
+    (2, 100, 448, "ctx", True),
+])
+def test_fused_kernel_schedules_match_twin(dev, b, t, c, variant, split,
+                                           monkeypatch):
+    """K1 with its streamed products' K split in two and unsplit, at
+    ragged row counts, in both variants, against the twin."""
+    p = _random_tree(c, dev, seed=3)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(b, t, c, generator=g, device=dev).bfloat16()
+    if variant == "kv":
+        kw = {"kv": tuple(torch.randn(b, TK, c, generator=g, device=dev)
+                          .bfloat16() for _ in range(2))}
+        ctx_dim = None
+    else:
+        kw = {"context": torch.randn(b, TK, CTX, generator=g, device=dev)
+              .bfloat16()}
+        ctx_dim = CTX
+    forced = _split_products(gp.transformer_plans(b, t, c, TK, ctx_dim),
+                             split)
+    assert any(q is not None and q.splits > 1 for q in forced[0]) == split
+    monkeypatch.setattr(gp, "cached_transformer_plans", lambda *a: forced)
+    before = ft.fused_transformer_block.launches
+    with torch.no_grad():
+        got = ft.fused_transformer_block(x, p, 8, **kw)
+        want = ft.transformer_block_reference(x, p, 8, **kw)
+    assert ft.fused_transformer_block.launches == before + 1
+    assert _rel(got, want) < 2e-2
+
+
+@pytest.mark.cuda
+def test_split_products_repeat_bit_for_bit(dev, monkeypatch):
+    """Split partial sums are added in split order by whichever block
+    arrives last, so two calls give the same bits."""
+    c = 448
+    forced = _split_products(gp.transformer_plans(4, 192, c, TK), True)
+    assert any(q is not None and q.splits > 1 for q in forced[0])
+    monkeypatch.setattr(gp, "cached_transformer_plans", lambda *a: forced)
+    p = _random_tree(c, dev, seed=4)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(4, 192, c, generator=g, device=dev).bfloat16()
+    kv = tuple(torch.randn(4, TK, c, generator=g, device=dev).bfloat16()
+               for _ in range(2))
+    with torch.no_grad():
+        first = ft.fused_transformer_block(x, p, 8, kv=kv)
+        assert torch.equal(first, ft.fused_transformer_block(x, p, 8, kv=kv))
+    shape, o = (4, 32, 24, 672), 224
+    assert gp.plan_conv(shape, o).splits > 1
+    x, gs, gb, w, cb = _resblock_inputs(shape, o, torch.bfloat16, dev)
+    first = frb.fused_gn_silu_conv(x, gs, gb, w, cb, 32, 1e-5)
+    assert torch.equal(first, frb.fused_gn_silu_conv(x, gs, gb, w, cb, 32,
+                                                     1e-5))
+
+
+@pytest.mark.cuda
+def test_split_launches_on_two_streams_match_one_stream(dev):
+    """Split launches running at once on two streams count their tiles in
+    counters of their own, so each gives the bits it gives alone."""
+    shape, o = (4, 32, 24, 672), 224
+    assert gp.plan_conv(shape, o).splits > 1
+    inputs = [_resblock_inputs(shape, o, torch.bfloat16, dev, seed)
+              for seed in (5, 6)]
+    want = [frb.fused_gn_silu_conv(*a, 32, 1e-5) for a in inputs]
+    streams = [torch.cuda.Stream(dev) for _ in inputs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[k].append(frb.fused_gn_silu_conv(*inputs[k], 32, 1e-5))
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert all(torch.equal(t, want[k]) for t in got[k])
+
+
+@pytest.mark.cuda
+def test_split_launch_replays_from_a_cuda_graph(dev):
+    """A split launch captured in a CUDA graph zeroes counters of its own
+    in the graph; its replays give the eager call's bits."""
+    shape, o = (4, 32, 24, 672), 224
+    assert gp.plan_conv(shape, o).splits > 1
+    args = _resblock_inputs(shape, o, torch.bfloat16, dev, 7)
+    want = frb.fused_gn_silu_conv(*args, 32, 1e-5)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        frb.fused_gn_silu_conv(*args, 32, 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = frb.fused_gn_silu_conv(*args, 32, 1e-5)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 @pytest.mark.cuda

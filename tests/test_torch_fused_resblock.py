@@ -182,3 +182,18 @@ def test_resblock_fused_level_2_matches_jax(shape, cout, monkeypatch):
     assert trb.fused_gn_silu_conv.launches == before
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-5)
+
+
+def test_float32_vectors_follow_the_tensor_version():
+    """The norm and bias vectors the kernel reads as float32 are cast once
+    per version of the bf16 parameter, as the packed weights are."""
+    b = torch.nn.Parameter(torch.randn(8).bfloat16())
+    f1 = trb._float32(b, b.device)
+    assert f1.dtype == torch.float32 and torch.equal(f1, b.detach().float())
+    assert trb._float32(b, b.device) is f1  # same version: reused
+    with torch.no_grad():
+        b.add_(1.0)
+    f2 = trb._float32(b, b.device)
+    assert f2 is not f1 and torch.equal(f2, b.detach().float())
+    already = torch.randn(8)
+    assert trb._float32(already, already.device) is already

@@ -14,20 +14,29 @@
 // (T=192, C=448) the bf16 weights alone are 9.2 MB, forty times a block's
 // 227 KB of shared memory, and the ds1 token stream (768 x 224) needs many
 // SMs to keep the card busy. The work is a chain of matrix products with
-// cheap prologues and epilogues, so the block is split into eleven launches
-// (twelve with the context projection) on one stream, all hand-written here:
+// cheap prologues and epilogues (40 M C^2 of the block's operations), so the
+// block is split into eleven launches (twelve with the context projection)
+// on one stream, all hand-written here:
 //   (a) gn_stats_kernel: GroupNorm statistics per (sample, group), float32,
 //       var = E[x^2] - E[x]^2 clamped at 0, as _block_kernel computes them;
-//   (b) gemm_kernel: a 64x64-tiled bf16 tensor-core (WMMA 16x16x16) product
-//       with float32 accumulation and a selectable prologue (GroupNorm apply
-//       or LayerNorm, eps 1e-5, applied in float32 as the A tile is staged,
-//       LayerNorm row statistics computed in the block) and epilogue (bias,
-//       q-column scale, residual add, or the GEGLU gate x * gelu_erf(g) with
-//       the x and gate halves of W multiplied side by side). It covers
-//       proj_in, packed QKV, both to_out, the cross to_q, both FF products,
-//       proj_out and, in the training variant, the context's K/V projection
-//       (two pieces of W into one (B*Tk, 2C) product, no prologue; the row
-//       count B*Tk is masked like any other);
+//   (b) product_kernel: the products on the pipelined wgmma mainloop of
+//       gemm_sm90.cuh, the weights fed by TMA through a ring of stages.
+//       Products with a norm prologue (proj_in with the GroupNorm apply;
+//       the packed QKV, the cross q and the GEGLU FF1 with a LayerNorm,
+//       eps 1e-5) have K = C <= 512: a block loads its BM x C panel of A
+//       into shared memory once, computes the LayerNorm's two-pass float32
+//       row statistics from it (or reads (a)'s), normalises the panel in
+//       place in float32 and rounds it to bf16, as the A tile was rounded
+//       before, and every K step then reads its fragments from the panel.
+//       Products without one (both to_out, FF2 with K = 4C, proj_out and,
+//       in the training variant, the context's K/V projection) stream A
+//       through the ring beside W and may split K. Epilogues run on the
+//       accumulator registers: bias, the q columns' 1/sqrt(dh) scale, the
+//       residual added in float32 before the one rounding, or the GEGLU
+//       gate x * gelu_erf(g) with the x and gate rows of W in two
+//       accumulators of the same block; the tile leaves in 16-byte stores.
+//       The packed QKV product reads to_q, to_k and to_v where they lie, one
+//       descriptor each; a block's N tile lies inside one piece;
 //   (c) the shared attention routine of flash_attention.cu, reading head h
 //       of the packed (B, T, C) activations at column offset h * dh, so no
 //       head transpose is ever materialised.
@@ -35,39 +44,30 @@
 // zero-pads its D chunks in shared memory. Intermediates (~10 B*T*C bf16,
 // plus 2 B*Tk*C for projected K/V) live in a workspace the caller allocates;
 // the bf16 residual stream is rounded after every sub-block, as in
-// _block_kernel.
-#include <mma.h>
-
+// _block_kernel. Tiles, splits of K and ring depths come from the caller's
+// plan (upgpt_torch/ops/gemm_plan.py), checked here again.
 #include "attention.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using sm90::kBK;
 
 constexpr int kGroups = 32;
 constexpr float kLnEps = 1e-5f;
-
-constexpr int kBM = 64, kBN = 64, kBK = 32;
-constexpr int kLds = kBK + 8;   // bf16 row pitch of the A/B tiles
-constexpr int kLdc = kBN + 4;   // float row pitch of the epilogue tile
-constexpr int kGemmThreads = 128;
-constexpr int kMaxNormK = 512;  // widest row the norm prologues stage
+constexpr int kMaxNormK = 512;  // widest norm prologue (the gate's C bound)
+constexpr int kPlanInts = 5;    // wg, bn, splits, steps_per_split, stages
 
 enum Prologue { kNone = 0, kLayerNorm = 1, kGroupNorm = 2 };
 
-struct GemmArgs {
+struct Product {
   const bf16* A;         // (M, K) row-major
-  // (N, K) row-major, nn.Linear layout, in `parts` pieces of N / parts rows
-  // each: W[i] holds output columns [i * N / parts, (i + 1) * N / parts).
-  // The QKV product reads to_q, to_k and to_v where they lie (parts = 3);
-  // every other product has one piece.
-  const bf16* W[3];
-  int parts;
+  int M, N, K;
+  int parts;             // W in `parts` pieces of N / parts rows each
   const bf16* bias;      // per output column, or null
   const bf16* residual;  // (M, N), or null
   bf16* out;             // (M, N)
-  int M, N, K;
   int gate_offset;       // GEGLU: the gate's rows of W start here
   int q_cols;            // columns [0, q_cols) are scaled by q_scale
   float q_scale;
@@ -75,7 +75,20 @@ struct GemmArgs {
   const bf16* beta;      // (K) norm shift
   const float* gn_stats; // (samples, 32, 2) mean, rstd
   int rows_per_sample;
+  // the plan
+  int wg, bn, splits, steps_per_split, stages;
+  float* ws;             // split partials, [tile][split][nb][bn/2][threads]
+  int* counters;         // one per tile, 0 between launches
 };
+
+// gemm_plan.product_smem
+__host__ __device__ inline int product_smem(int bm, int bn, int nb, int k,
+                                            bool prologue, int stages) {
+  const int stage = nb * bn * 128 + (prologue ? 0 : bm * 128);
+  const int panel = prologue ? bm * (k + 8) * 2 + 2 * k * 4 : 0;
+  const int staging = bm * sm90::staging_pitch<bf16>(bn) * 2;
+  return panel + stages * stage > staging ? panel + stages * stage : staging;
+}
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 
@@ -119,196 +132,337 @@ gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats, int T,
   }
 }
 
-template <int PRO, bool GEGLU>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
-  constexpr int kTileBytes = (GEGLU ? 3 : 2) * kBM * kLds * sizeof(bf16);
-  constexpr int kEpiBytes = (GEGLU ? 2 : 1) * kBM * kLdc * sizeof(float);
-  constexpr int kSmemBytes = kTileBytes > kEpiBytes ? kTileBytes : kEpiBytes;
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __shared__ float row_mean[kBM], row_rstd[kBM];
-  __shared__ float gam[PRO == kNone ? 1 : kMaxNormK];
-  __shared__ float bet[PRO == kNone ? 1 : kMaxNormK];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [kBM][kLds]
-  bf16* Bs = As + kBM * kLds;                // [kBN][kLds]: W rows = B columns
-  bf16* Gs = Bs + kBN * kLds;                // gate rows (GEGLU)
-  float* Cs = reinterpret_cast<float*>(smem);  // [kBM][kLdc] after the loop
-  float* Cg = Cs + kBM * kLdc;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int K = g.K;
-  // each block works inside one piece of W: columns [n0, n0 + kBN) of the
-  // piece's pn, which are output columns col0 + n
-  const int pn = g.N / g.parts;
-  const int tiles = (pn + kBN - 1) / kBN;
-  const int part = blockIdx.x / tiles;
-  const int m0 = blockIdx.y * kBM, n0 = (blockIdx.x % tiles) * kBN;
-  const int col0 = part * pn;
-  const bf16* W = part == 0 ? g.W[0] : part == 1 ? g.W[1] : g.W[2];
-  if (PRO != kNone) {
-    for (int k = tid; k < K; k += kGemmThreads) {
-      gam[k] = bf(g.gamma[k]);
-      bet[k] = bf(g.beta[k]);
-    }
+// Loads the block's BM x K panel of A (rows past M zero) and normalises it
+// in place: LayerNorm with two-pass float32 row statistics, or the
+// GroupNorm apply from gn_stats; float32 arithmetic, one bf16 rounding.
+template <int PRO>
+__device__ __forceinline__ void load_panel(const Product& g, bf16* panel,
+                                           float* gam, float* bet, int m0,
+                                           int bm, int threads) {
+  const int tid = threadIdx.x, K = g.K, P = K + 8;
+  for (int k = tid; k < K; k += threads) {
+    gam[k] = bf(g.gamma[k]);
+    bet[k] = bf(g.beta[k]);
   }
-  if (PRO == kLayerNorm) {
-    // two-pass row statistics in float32, as the twin's _ln_f32
-    for (int r = warp; r < kBM; r += kGemmThreads / 32) {
-      const int m = m0 + r;
-      float mean = 0.f, rstd = 0.f;
-      if (m < g.M) {
-        const bf16* row = g.A + static_cast<size_t>(m) * K;
-        float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += bf(row[k]);
-        mean = warp_sum(s) / K;
-        float v = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          const float d = bf(row[k]) - mean;
-          v += d * d;
+  // every row's 16-byte pieces in flight at once (rows past M read 0)
+  const int vecs = K / 8;
+  for (int i = tid; i < bm * vecs; i += threads) {
+    const int r = i / vecs, c = (i % vecs) * 8, m = m0 + r;
+    const bool in = m < g.M;
+    mma::cp_async<16>(panel + r * P + c,
+                      in ? g.A + static_cast<size_t>(m) * K + c : g.A, in);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  sm90::consumer_sync(threads);
+  const int warp = tid / 32, lane = tid % 32, warps = threads / 32;
+  // kRows rows per warp at a time, so that their reductions overlap
+  constexpr int kRows = 4;
+  for (int r0 = warp; r0 < bm; r0 += kRows * warps) {
+    __nv_bfloat162* row[kRows];
+    bool live[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int r = r0 + j * warps;
+      live[j] = r < bm && m0 + r < g.M;
+      row[j] = reinterpret_cast<__nv_bfloat162*>(panel + (live[j] ? r : 0) * P);
+    }
+    if (PRO == kLayerNorm) {
+      float mean[kRows], rstd[kRows];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        float acc = 0.f;
+        for (int k = lane; k < K / 2; k += 32) {
+          const float2 v = __bfloat1622float2(row[j][k]);
+          acc += v.x + v.y;
         }
-        rstd = rsqrtf(warp_sum(v) / K + kLnEps);
+        mean[j] = acc;
       }
-      if (lane == 0) {
-        row_mean[r] = mean;
-        row_rstd[r] = rstd;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) mean[j] = warp_sum(mean[j]) / K;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        float acc = 0.f;
+        for (int k = lane; k < K / 2; k += 32) {
+          const float2 v = __bfloat1622float2(row[j][k]);
+          acc += (v.x - mean[j]) * (v.x - mean[j]) +
+                 (v.y - mean[j]) * (v.y - mean[j]);
+        }
+        rstd[j] = acc;
       }
-    }
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2], acc_g[2][2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < kRows; ++j)
+        rstd[j] = rsqrtf(warp_sum(rstd[j]) / K + kLnEps);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.f);
-      if (GEGLU) wmma::fill_fragment(acc_g[i][j], 0.f);
-    }
-  const int wm = warp / 2, wn = warp % 2;  // 2x2 warps, 32x32 outputs each
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // A tile, prologue applied in float32, stored bf16. K is even, so a
-    // bf16 pair is either wholly inside or wholly outside the matrix.
-    for (int i = tid; i < kBM * kBK / 2; i += kGemmThreads) {
-      const int r = i / (kBK / 2), c = (i % (kBK / 2)) * 2;
-      const int m = m0 + r, k = k0 + c;
-      float2 v = make_float2(0.f, 0.f);
-      if (m < g.M && k < K) {
-        v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            g.A + static_cast<size_t>(m) * K + k));
-        if (PRO == kLayerNorm) {
-          const float mu = row_mean[r], rs = row_rstd[r];
-          v.x = (v.x - mu) * rs * gam[k] + bet[k];
-          v.y = (v.y - mu) * rs * gam[k + 1] + bet[k + 1];
-        } else if (PRO == kGroupNorm) {
-          const int cpg = K / kGroups;
-          const float* st =
-              g.gn_stats + static_cast<size_t>(m / g.rows_per_sample) * kGroups * 2;
-          const int g0 = k / cpg, g1 = (k + 1) / cpg;
-          v.x = (v.x - st[2 * g0]) * st[2 * g0 + 1] * gam[k] + bet[k];
-          v.y = (v.y - st[2 * g1]) * st[2 * g1 + 1] * gam[k + 1] + bet[k + 1];
+      for (int j = 0; j < kRows; ++j) {
+        if (!live[j]) continue;
+        for (int k = lane; k < K / 2; k += 32) {
+          const float2 v = __bfloat1622float2(row[j][k]);
+          row[j][k] = __floats2bfloat162_rn(
+              (v.x - mean[j]) * rstd[j] * gam[2 * k] + bet[2 * k],
+              (v.y - mean[j]) * rstd[j] * gam[2 * k + 1] + bet[2 * k + 1]);
         }
       }
-      *reinterpret_cast<__nv_bfloat162*>(As + r * kLds + c) =
-          __floats2bfloat162_rn(v.x, v.y);
-    }
-    // B tile(s): rows n of W, contiguous in k
-    for (int i = tid; i < kBN * kBK / 2; i += kGemmThreads) {
-      const int r = i / (kBK / 2), c = (i % (kBK / 2)) * 2;
-      const int n = n0 + r, k = k0 + c;
-      const bool in = n < pn && k < K;
-      const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(Bs + r * kLds + c) =
-          in ? *reinterpret_cast<const __nv_bfloat162*>(
-                   W + static_cast<size_t>(n) * K + k)
-             : zero;
-      if (GEGLU)
-        *reinterpret_cast<__nv_bfloat162*>(Gs + r * kLds + c) =
-            in ? *reinterpret_cast<const __nv_bfloat162*>(
-                     W + static_cast<size_t>(n + g.gate_offset) * K + k)
-               : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * kLds + kk, kLds);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + (wn * 32 + j * 16) * kLds + kk, kLds);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      if (GEGLU) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], Gs + (wn * 32 + j * 16) * kLds + kk, kLds);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc_g[i][j], fa[i], fb[j], acc_g[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int off = (wm * 32 + i * 16) * kLdc + wn * 32 + j * 16;
-      wmma::store_matrix_sync(Cs + off, acc[i][j], kLdc, wmma::mem_row_major);
-      if (GEGLU)
-        wmma::store_matrix_sync(Cg + off, acc_g[i][j], kLdc, wmma::mem_row_major);
-    }
-  __syncthreads();
-
-  for (int i = tid; i < kBM * kBN; i += kGemmThreads) {
-    const int r = i / kBN, c = i % kBN;
-    const int m = m0 + r, n = n0 + c, col = col0 + n;
-    if (m >= g.M || n >= pn) continue;
-    float v = Cs[r * kLdc + c];
-    if (GEGLU) {
-      const float x = v + (g.bias ? bf(g.bias[col]) : 0.f);
-      const float gate =
-          Cg[r * kLdc + c] + (g.bias ? bf(g.bias[col + g.gate_offset]) : 0.f);
-      v = x * (0.5f * gate * (1.f + erff(gate * 0.70710678118654752f)));
     } else {
-      if (col < g.q_cols) v *= g.q_scale;
-      if (g.bias) v += bf(g.bias[col]);
-      if (g.residual) v += bf(g.residual[static_cast<size_t>(m) * g.N + col]);
+      const int cpg = K / kGroups;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        if (!live[j]) continue;
+        const float* st = g.gn_stats +
+                          static_cast<size_t>((m0 + r0 + j * warps) /
+                                              g.rows_per_sample) * kGroups * 2;
+        for (int k = lane; k < K / 2; k += 32) {
+          const float2 v = __bfloat1622float2(row[j][k]);
+          const int g0 = 2 * k / cpg, g1 = (2 * k + 1) / cpg;
+          row[j][k] = __floats2bfloat162_rn(
+              (v.x - st[2 * g0]) * st[2 * g0 + 1] * gam[2 * k] + bet[2 * k],
+              (v.y - st[2 * g1]) * st[2 * g1 + 1] * gam[2 * k + 1] +
+                  bet[2 * k + 1]);
+        }
+      }
     }
-    g.out[static_cast<size_t>(m) * g.N + col] = __float2bfloat16(v);
   }
+  sm90::consumer_sync(threads);
 }
 
-template <int PRO, bool GEGLU>
-cudaError_t gemm(const GemmArgs& g, cudaStream_t stream) {
-  const int tiles = (g.N / g.parts + kBN - 1) / kBN;
-  const dim3 grid(g.parts * tiles, (g.M + kBM - 1) / kBM);
-  gemm_kernel<PRO, GEGLU><<<grid, kGemmThreads, 0, stream>>>(g);
+// grid (parts * N tiles per piece, M tiles, splits); block 128 * (wg + 1):
+// wg consumer warpgroups of 64 rows, then the producer warpgroup
+template <int PRO, bool GEGLU, int BN>
+__global__ void __launch_bounds__(
+    sm90::block_threads(sm90::max_warpgroups(BN, GEGLU ? 2 : 1)), 1)
+product_kernel(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b0,
+               const __grid_constant__ CUtensorMap map_b1,
+               const __grid_constant__ CUtensorMap map_b2, const Product g) {
+  constexpr int NB = GEGLU ? 2 : 1;
+  constexpr int R = BN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[sm90::kMaxStages], empty[sm90::kMaxStages];
+  __shared__ int last;
+  uint8_t* smem = sm90::align1024(smem_raw);
+
+  const int threads = 128 * g.wg, bm = 64 * g.wg, K = g.K;
+  const int pn = g.N / g.parts, nt = (pn + BN - 1) / BN;
+  const int part = blockIdx.x / nt, n0 = (blockIdx.x % nt) * BN;
+  const int m0 = blockIdx.y * bm;
+  const int ksteps = (K + kBK - 1) / kBK;
+  const int s0 = blockIdx.z * g.steps_per_split;
+  const int steps = min(g.steps_per_split, ksteps - s0);
+  const int stage_bytes = NB * BN * 128 + (PRO == kNone ? bm * 128 : 0);
+  const sm90::Ring ring{smem, full, empty, g.stages, stage_bytes};
+  bf16* panel = reinterpret_cast<bf16*>(smem + g.stages * stage_bytes);
+  float* gam = reinterpret_cast<float*>(panel + bm * (K + 8));
+  float* bet = gam + K;
+  if (threadIdx.x == 0) sm90::ring_init(ring, 4 * g.wg);
+  __syncthreads();
+
+  constexpr int kMaxWg = sm90::max_warpgroups(BN, NB);
+  const int wg = sm90::warpgroup_index();
+  if (wg == g.wg) {  // the producer warpgroup
+    sm90::producer_registers<kMaxWg>();
+    if (threadIdx.x == threads) {
+      const CUtensorMap* mb =
+          part == 0 ? &map_b0 : part == 1 ? &map_b1 : &map_b2;
+      sm90::produce(ring, steps, stage_bytes,
+                    [&](int s, uint8_t* dst, uint64_t* bar) {
+                      const int k0 = (s0 + s) * kBK;
+                      sm90::tma_2d(dst, mb, bar, k0, n0);
+                      if (GEGLU)
+                        sm90::tma_2d(dst + BN * 128, mb, bar, k0,
+                                     n0 + g.gate_offset);
+                      if (PRO == kNone)
+                        sm90::tma_2d(dst + NB * BN * 128, &map_a, bar, k0,
+                                     m0);
+                    });
+    }
+    return;
+  }
+  sm90::consumer_registers<kMaxWg>();
+
+  const int lane = threadIdx.x % 32;
+  const int row = wg * 64 + ((threadIdx.x / 32) % 4) * 16 + (lane & 15);
+  if (PRO != kNone) load_panel<PRO>(g, panel, gam, bet, m0, bm, threads);
+
+  float acc[NB][R];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[b][i] = 0.f;
+  sm90::consume<BN, NB>(
+      ring, steps, acc, [](int) {},
+      [&](int s, int kk, uint8_t* stage, uint32_t(&a)[4]) {
+        if ((s0 + s) * kBK + kk * 16 >= K) {  // past K (K % 16 == 0)
+          a[0] = a[1] = a[2] = a[3] = 0u;
+        } else if (PRO != kNone) {
+          mma::ldsm_x4(a, panel + row * (K + 8) + (s0 + s) * kBK + kk * 16 +
+                              (lane >> 4) * 8);
+        } else {  // the stage's A box, 128-byte rows, 16-byte chunks XOR row
+          const int chunk = kk * 2 + (lane >> 4);
+          mma::ldsm_x4(a, reinterpret_cast<const bf16*>(
+                              stage + NB * BN * 128 + row * 128 +
+                              ((chunk ^ (row & 7)) << 4)));
+        }
+      });
+  sm90::consumer_sync(threads);  // the staging tile reuses the ring
+
+  if (g.splits > 1) {
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    float* ws = g.ws + static_cast<size_t>(tile) * g.splits * NB * R * threads;
+    if (!sm90::split_reduce(acc, ws, g.counters + tile, blockIdx.z, g.splits,
+                            threads, &last))
+      return;
+  }
+
+  constexpr int P = sm90::staging_pitch<bf16>(BN);
+  bf16* staged = reinterpret_cast<bf16*>(smem) + wg * 64 * P;
+  const int col0 = part * pn + n0;
+  if constexpr (GEGLU) {
+    // x * gelu_erf(gate), each with its bias, from the two accumulators
+    const int q = lane / 4, t = lane % 4, w = (threadIdx.x / 32) % 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = w * 16 + q + 8 * h, c = 8 * j + 2 * t;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = acc[0][4 * j + 2 * h + e];
+          float gt = acc[NB - 1][4 * j + 2 * h + e];
+          if (g.bias && n0 + c < pn) {
+            x += bf(g.bias[col0 + c + e]);
+            gt += bf(g.bias[col0 + c + e + g.gate_offset]);
+          }
+          v[e] = x * (0.5f * gt * (1.f + erff(gt * 0.70710678118654752f)));
+        }
+        sm90::put2(staged + r * P + c, v[0], v[1]);
+      }
+  } else {
+    sm90::for_pairs<BN>(acc[0], [&](int r, int c, float v0, float v1) {
+      const int m = m0 + wg * 64 + r, col = col0 + c;
+      if (m < g.M && n0 + c < pn) {
+        if (col < g.q_cols) {
+          v0 *= g.q_scale;
+          v1 *= g.q_scale;
+        }
+        if (g.bias) {
+          v0 += bf(g.bias[col]);
+          v1 += bf(g.bias[col + 1]);
+        }
+        if (g.residual) {
+          const float2 res = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  g.residual + static_cast<size_t>(m) * g.N + col));
+          v0 += res.x;
+          v1 += res.y;
+        }
+      }
+      sm90::put2(staged + r * P + c, v0, v1);
+    });
+  }
+  sm90::warpgroup_sync(wg);
+  sm90::copy_rows<bf16, BN>(
+      staged, min(BN, pn - n0), true, [&](int r) -> bf16* {
+        const int m = m0 + wg * 64 + r;
+        return m < g.M ? g.out + static_cast<size_t>(m) * g.N + col0
+                       : nullptr;
+      });
+}
+
+template <int PRO, bool GEGLU, int BN>
+cudaError_t launch_bn(const Product& g, const CUtensorMap* maps,
+                      cudaStream_t stream) {
+  auto kernel = product_kernel<PRO, GEGLU, BN>;
+  static const cudaError_t opted = sm90::allow_smem(kernel);
+  if (opted != cudaSuccess) return opted;
+  const int nb = GEGLU ? 2 : 1, bm = 64 * g.wg;
+  const int pn = g.N / g.parts;
+  const dim3 grid(g.parts * ((pn + BN - 1) / BN), (g.M + bm - 1) / bm,
+                  g.splits);
+  const int smem = sm90::kAlignSlack +
+                   product_smem(bm, BN, nb, g.K, PRO != kNone, g.stages);
+  kernel<<<grid, sm90::block_threads(g.wg), smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], g);
   return cudaGetLastError();
 }
 
-GemmArgs product(const bf16* A, int M, int K, const void* W, int N,
-                 bf16* out) {
-  GemmArgs g = {};
+// Checks the plan against the product and the card, builds the product's
+// descriptors (A's for a streamed A, one per piece of W, cached) and
+// launches.
+template <int PRO, bool GEGLU>
+cudaError_t gemm(Product g, const int* plan, const bf16* const* W,
+                 float* ws, long long ws_floats, int* counters,
+                 int n_counters, cudaStream_t stream) {
+  const int nb = GEGLU ? 2 : 1;
+  g.wg = plan[0];
+  g.bn = plan[1];
+  g.splits = plan[2];
+  g.steps_per_split = plan[3];
+  g.stages = plan[4];
+  const int bm = 64 * g.wg, pn = g.N / g.parts;
+  const int ksteps = (g.K + kBK - 1) / kBK;
+  if (!sm90::bn_in_menu(g.bn) || nb * g.bn > 256 || g.wg < 1 ||
+      g.wg > sm90::max_warpgroups(g.bn, nb) || g.stages < sm90::kMinStages ||
+      g.stages > sm90::kMaxStages || g.splits < 1 ||
+      g.steps_per_split < 1 ||
+      (g.splits - 1) * g.steps_per_split >= ksteps ||
+      g.splits * g.steps_per_split < ksteps ||
+      (PRO != kNone && (g.splits != 1 || g.K > kMaxNormK)) || g.K % 16 ||
+      g.N % g.parts || pn % 8 ||
+      !sm90::smem_fits(product_smem(bm, g.bn, nb, g.K, PRO != kNone,
+                                    g.stages)))
+    return cudaErrorInvalidValue;
+  const long long tiles = static_cast<long long>(g.parts) *
+                          ((pn + g.bn - 1) / g.bn) * ((g.M + bm - 1) / bm);
+  if (g.splits > 1 &&
+      (tiles > n_counters ||
+       tiles * g.splits * nb * g.bn / 2 * 128 * g.wg > ws_floats))
+    return cudaErrorInvalidValue;
+  g.ws = ws;
+  g.counters = counters;
+
+  CUtensorMap maps[4];
+  memset(maps, 0, sizeof(maps));
+  if (PRO == kNone) {
+    const uint64_t dims[2] = {static_cast<uint64_t>(g.K),
+                              static_cast<uint64_t>(g.M)};
+    const uint32_t box[2] = {kBK, static_cast<uint32_t>(bm)};
+    const cudaError_t e = sm90::make_map(&maps[0], g.A, 2, dims, box);
+    if (e != cudaSuccess) return e;
+  }
+  for (int p = 0; p < g.parts; ++p) {
+    // GEGLU: one piece holding the x rows and, gate_offset further, the
+    // gate rows
+    const uint64_t dims[2] = {static_cast<uint64_t>(g.K),
+                              static_cast<uint64_t>(GEGLU ? 2 * pn : pn)};
+    const uint32_t box[2] = {kBK, static_cast<uint32_t>(g.bn)};
+    const cudaError_t e = sm90::weight_map(&maps[1 + p], W[p], 2, dims, box);
+    if (e != cudaSuccess) return e;
+  }
+  switch (g.bn) {
+    case 64: return launch_bn<PRO, GEGLU, 64>(g, maps, stream);
+    case 128: return launch_bn<PRO, GEGLU, 128>(g, maps, stream);
+    default: break;
+  }
+  if constexpr (!GEGLU) {
+    if (g.bn == 224) return launch_bn<PRO, false, 224>(g, maps, stream);
+    if (g.bn == 256) return launch_bn<PRO, false, 256>(g, maps, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+Product product(const bf16* A, int M, int K, int N, bf16* out) {
+  Product g = {};
   g.A = A;
   g.M = M;
   g.K = K;
-  g.W[0] = static_cast<const bf16*>(W);
-  g.parts = 1;
   g.N = N;
+  g.parts = 1;
   g.out = out;
   return g;
 }
 
-GemmArgs with_norm(GemmArgs g, const void* gamma, const void* beta) {
+Product with_norm(Product g, const void* gamma, const void* beta) {
   g.gamma = static_cast<const bf16*>(gamma);
   g.beta = static_cast<const bf16*>(beta);
   return g;
@@ -354,7 +508,10 @@ AttnArgs packed_attention(const bf16* q, long long q_row, const bf16* k,
 // x half first, w_ff2 (C, 4C). Cross K/V: either k2, v2 precomputed
 // (B, Tk, C) with ctx null, or ctx (B, Tk, ctx_dim) with attn2's w_k2, w_v2
 // (C, ctx_dim) and k2, v2 null. ws: 10*B*T*C (+ 2*B*Tk*C with ctx) bf16
-// workspace; stats: B*64 float32.
+// workspace; stats: B*64 float32. plan: 9 x 5 host ints in
+// gemm_plan.PRODUCTS order (wg, bn, splits, steps_per_split, stages; the
+// context row unread without ctx); split_ws: ws_floats float32 and
+// counters: n_counters int32, zero, for the products the plan splits.
 extern "C" int upgpt_fused_transformer_block(
     const void* x, void* out, const void* gn_w, const void* gn_b,
     const void* w_pi, const void* b_pi, const void* ln1_w, const void* ln1_b,
@@ -364,13 +521,15 @@ extern "C" int upgpt_fused_transformer_block(
     const void* ln3_w, const void* ln3_b, const void* w_ff1,
     const void* b_ff1, const void* w_ff2, const void* b_ff2,
     const void* w_po, const void* b_po, const void* ctx, const void* w_k2,
-    const void* w_v2, void* ws, void* stats, int B, int T, int C, int heads,
-    int Tk, int ctx_dim, float gn_eps, float q_scale, void* stream_ptr) {
+    const void* w_v2, void* ws, void* stats, const int* plan, void* split_ws,
+    long long ws_floats, void* counters, int n_counters, int B, int T, int C,
+    int heads, int Tk, int ctx_dim, float gn_eps, float q_scale,
+    void* stream_ptr) {
   if (B <= 0 || T <= 0 || C <= 0 || C % kGroups || C > kMaxNormK ||
-      heads <= 0 || C % heads || Tk <= 0)
+      heads <= 0 || C % heads || Tk <= 0 || plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  // with a context the bf16 pair loads of the projection need an even width
-  if (ctx != nullptr ? (ctx_dim <= 0 || ctx_dim % 2 || !w_k2 || !w_v2)
+  // TMA reads the context in rows of 16-byte multiples
+  if (ctx != nullptr ? (ctx_dim <= 0 || ctx_dim % 8 || !w_k2 || !w_v2)
                      : (!k2 || !v2))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -384,18 +543,22 @@ extern "C" int upgpt_fused_transformer_block(
   bf16* ff = att + mc;  // (M, 4C)
   bf16* kv = ff + 4 * mc;  // (B*Tk, 2C) projected cross K | V, with ctx
   float* st = static_cast<float*>(stats);
+  float* sws = static_cast<float*>(split_ws);
+  int* cnt = static_cast<int*>(counters);
+  auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto row = [&](int i) { return plan + i * kPlanInts; };
 
   auto launch = [&]() -> cudaError_t {
     // training variant: project the context through to_k | to_v first
-    const bf16* ck = static_cast<const bf16*>(k2);
-    const bf16* cv = static_cast<const bf16*>(v2);
+    const bf16* ck = w(k2);
+    const bf16* cv = w(v2);
     long long kv_row = C;
     if (ctx != nullptr) {
-      GemmArgs g = product(static_cast<const bf16*>(ctx), B * Tk, ctx_dim,
-                           w_k2, 2 * C, kv);
-      g.W[1] = static_cast<const bf16*>(w_v2);
+      Product g = product(w(ctx), B * Tk, ctx_dim, 2 * C, kv);
       g.parts = 2;
-      UPGPT_TRY((gemm<kNone, false>(g, stream)));
+      const bf16* W[2] = {w(w_k2), w(w_v2)};
+      UPGPT_TRY((gemm<kNone, false>(g, row(0), W, sws, ws_floats, cnt,
+                                    n_counters, stream)));
       ck = kv;
       cv = kv + C;
       kv_row = 2LL * C;
@@ -404,57 +567,71 @@ extern "C" int upgpt_fused_transformer_block(
     // GroupNorm statistics, then proj_in with the GroupNorm-apply prologue
     gn_stats_kernel<<<dim3(kGroups, B), 256, 0, stream>>>(xin, st, T, C, gn_eps);
     UPGPT_TRY(cudaGetLastError());
-    GemmArgs g = with_norm(product(xin, M, C, w_pi, C, h), gn_w, gn_b);
-    g.bias = static_cast<const bf16*>(b_pi);
+    Product g = with_norm(product(xin, M, C, C, h), gn_w, gn_b);
+    g.bias = w(b_pi);
     g.gn_stats = st;
     g.rows_per_sample = T;
-    UPGPT_TRY((gemm<kGroupNorm, false>(g, stream)));
+    const bf16* W_pi[1] = {w(w_pi)};
+    UPGPT_TRY((gemm<kGroupNorm, false>(g, row(1), W_pi, sws, ws_floats, cnt,
+                                       n_counters, stream)));
 
     // self-attention: LN1 -> packed QKV (q scaled) -> attention -> to_out + h
-    g = with_norm(product(h, M, C, w_q1, 3 * C, qkv), ln1_w, ln1_b);
-    g.W[1] = static_cast<const bf16*>(w_k1);
-    g.W[2] = static_cast<const bf16*>(w_v1);
+    g = with_norm(product(h, M, C, 3 * C, qkv), ln1_w, ln1_b);
     g.parts = 3;
     g.q_cols = C;
     g.q_scale = q_scale;
-    UPGPT_TRY((gemm<kLayerNorm, false>(g, stream)));
+    const bf16* W_qkv[3] = {w(w_q1), w(w_k1), w(w_v1)};
+    UPGPT_TRY((gemm<kLayerNorm, false>(g, row(2), W_qkv, sws, ws_floats, cnt,
+                                       n_counters, stream)));
     UPGPT_TRY(upgpt_attention_launch(
         packed_attention(qkv, 3LL * C, qkv + C, qkv + 2 * C, 3LL * C, att, B,
                          heads, T, T, C),
         1, stream));
-    g = product(att, M, C, w_o1, C, h2);
-    g.bias = static_cast<const bf16*>(b_o1);
+    g = product(att, M, C, C, h2);
+    g.bias = w(b_o1);
     g.residual = h;
-    UPGPT_TRY((gemm<kNone, false>(g, stream)));
+    const bf16* W_o1[1] = {w(w_o1)};
+    UPGPT_TRY((gemm<kNone, false>(g, row(3), W_o1, sws, ws_floats, cnt,
+                                  n_counters, stream)));
 
     // cross-attention on the precomputed or projected K/V
-    g = with_norm(product(h2, M, C, w_q2, C, qkv), ln2_w, ln2_b);
+    g = with_norm(product(h2, M, C, C, qkv), ln2_w, ln2_b);
     g.q_cols = C;
     g.q_scale = q_scale;
-    UPGPT_TRY((gemm<kLayerNorm, false>(g, stream)));
+    const bf16* W_q2[1] = {w(w_q2)};
+    UPGPT_TRY((gemm<kLayerNorm, false>(g, row(4), W_q2, sws, ws_floats, cnt,
+                                       n_counters, stream)));
     UPGPT_TRY(upgpt_attention_launch(
         packed_attention(qkv, C, ck, cv, kv_row, att, B, heads, T, Tk, C), 1,
         stream));
-    g = product(att, M, C, w_o2, C, h);
-    g.bias = static_cast<const bf16*>(b_o2);
+    g = product(att, M, C, C, h);
+    g.bias = w(b_o2);
     g.residual = h2;
-    UPGPT_TRY((gemm<kNone, false>(g, stream)));
+    const bf16* W_o2[1] = {w(w_o2)};
+    UPGPT_TRY((gemm<kNone, false>(g, row(5), W_o2, sws, ws_floats, cnt,
+                                  n_counters, stream)));
 
     // GEGLU feed-forward
-    g = with_norm(product(h, M, C, w_ff1, 4 * C, ff), ln3_w, ln3_b);
-    g.bias = static_cast<const bf16*>(b_ff1);
+    g = with_norm(product(h, M, C, 4 * C, ff), ln3_w, ln3_b);
+    g.bias = w(b_ff1);
     g.gate_offset = 4 * C;
-    UPGPT_TRY((gemm<kLayerNorm, true>(g, stream)));
-    g = product(ff, M, 4 * C, w_ff2, C, h2);
-    g.bias = static_cast<const bf16*>(b_ff2);
+    const bf16* W_ff1[1] = {w(w_ff1)};
+    UPGPT_TRY((gemm<kLayerNorm, true>(g, row(6), W_ff1, sws, ws_floats, cnt,
+                                      n_counters, stream)));
+    g = product(ff, M, 4 * C, C, h2);
+    g.bias = w(b_ff2);
     g.residual = h;
-    UPGPT_TRY((gemm<kNone, false>(g, stream)));
+    const bf16* W_ff2[1] = {w(w_ff2)};
+    UPGPT_TRY((gemm<kNone, false>(g, row(7), W_ff2, sws, ws_floats, cnt,
+                                  n_counters, stream)));
 
     // proj_out + the block's input residual
-    g = product(h2, M, C, w_po, C, static_cast<bf16*>(out));
-    g.bias = static_cast<const bf16*>(b_po);
+    g = product(h2, M, C, C, static_cast<bf16*>(out));
+    g.bias = w(b_po);
     g.residual = xin;
-    return gemm<kNone, false>(g, stream);
+    const bf16* W_po[1] = {w(w_po)};
+    return gemm<kNone, false>(g, row(8), W_po, sws, ws_floats, cnt,
+                              n_counters, stream);
   };
   return static_cast<int>(launch());
 }

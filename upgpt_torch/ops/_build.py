@@ -39,6 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 # C signatures: name -> argtypes; every entry point returns cudaError_t (int)
@@ -54,9 +55,10 @@ SIGNATURES = {
     "upgpt_gn_stats": [P, P, P, I, I, I, I, I, F, I, P],
     # x, stats, scale, shift, out, N, HW, C, with_silu, is_bf16, stream
     "upgpt_gn_apply": [P, P, P, P, P, I, I, I, I, I, P],
-    # x, gamma, beta, w, conv bias, out, ws, coef, N, H, W, C, O, G, chunks,
-    # eps, is_bf16, stream
-    "upgpt_fused_resblock": ([P] * 8 + [I] * 7 + [F, I, P]),
+    # x, gamma, beta, w, conv bias, out, ws, coef, plan, split ws, its
+    # floats, tile counters, their count, N, H, W, C, O, G, chunks, eps,
+    # is_bf16, stream
+    "upgpt_fused_resblock": ([P] * 10 + [L, P, I] + [I] * 7 + [F, I, P]),
     "upgpt_fused_transformer_block": (
         [P, P]                      # x, out
         + [P, P, P, P]              # gn w/b, proj_in w/b
@@ -66,6 +68,8 @@ SIGNATURES = {
         + [P, P]                    # proj_out w/b
         + [P, P, P]                 # context, attn2 to_k, to_v (or nulls)
         + [P, P]                    # bf16 workspace, fp32 stats
+        + [P, P, L, P, I]           # plan, split ws, its floats, counters,
+                                    # their count
         + [I, I, I, I, I, I]        # B, T, C, heads, Tk, ctx_dim
         + [F, F, P]                 # gn_eps, q_scale, stream
     ),

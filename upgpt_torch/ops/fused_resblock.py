@@ -7,17 +7,22 @@ GroupNorm(32) with float32 statistics, SiLU, the activation rounded to bf16,
 and a SAME-padded 3x3 conv against bf16 weights with float32 accumulation
 from the conv bias, stored in x's dtype. On this card it is two launches:
 the GroupNorm statistics of `csrc/gn_stats.cu`, then an implicit GEMM
-(M = B*H*W, N = O, K = 9*C) whose A-tile loader applies the norm and SiLU.
-The variance is clamped at 0, as the port's plain `group_norm` does (the
-TPU kernel does not clamp).
+(M = B*H*W, N = O, K = 9*C) on the pipelined wgmma mainloop of
+`csrc/gemm_sm90.cuh`: a block activates its tile's halo once per 64-channel
+chunk into shared memory and the nine taps read it at shifted rows, with
+the weights fed by TMA. Tiles, splits and ring depth come from
+`gemm_plan.plan_conv`. bf16 runs count in `launches`, float32 (the same
+kernel, instantiated for float32, on no path) in `fp32_launches`. The
+variance is clamped at 0, as the port's plain `group_norm` does (the TPU
+kernel does not clamp).
 
 The kernel takes any NHWC shape whose channels are a multiple of 8;
 `fused_resblock_qualifies` is the JAX package's VMEM arithmetic, kept as the
 dispatch rule, so the port fuses exactly the half-steps that JAX fuses.
 
 Weights: the port's `Conv2d` keeps (O, C, 3, 3). The kernel reads a
-(9, O, C) bf16 packing, channels contiguous, so its B tiles are rows of
-16-byte loads. `packed_conv_weight` keeps that packing on the weight tensor
+(9, O, C) bf16 packing, channels contiguous, which TMA reads as
+(tap, output, 64-channel) boxes. `packed_conv_weight` keeps that packing on the weight tensor
 and redoes it only when the weight's version changes (an optimizer step,
 a `copy_`, a state-dict load), so sampling packs each weight once instead
 of permuting and casting on every call, as the JAX function does.
@@ -33,7 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from upgpt_torch.ops import _build
+from upgpt_torch.ops import _build, gemm_plan
 from upgpt_torch.ops.basic import group_norm, silu
 from upgpt_torch.ops.fused_gn import stats_chunks
 
@@ -80,6 +85,22 @@ def packed_conv_weight(weight: torch.Tensor) -> torch.Tensor:
     return packed
 
 
+def _float32(t: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous float32 copy of a norm or bias vector on `device`,
+    cached on the tensor per version, as the packed weights are: the
+    sampling loop passes the same bf16 parameters on every call."""
+    if t.dtype == torch.float32 and t.device == device and t.is_contiguous():
+        return t
+    key = (t._version, t.dtype, device)
+    cached = getattr(t, "_upgpt_float32", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    with torch.no_grad():
+        out = t.detach().to(device, torch.float32).contiguous()
+    t._upgpt_float32 = (key, out)
+    return out
+
+
 def _launch(x, gn_scale, gn_bias, packed, conv_bias, num_groups, eps):
     if x.dim() != 4:
         raise ValueError(f"fused ResBlock half-step takes NHWC, got "
@@ -98,8 +119,8 @@ def _launch(x, gn_scale, gn_bias, packed, conv_bias, num_groups, eps):
     if packed.shape != (9, o, c) or packed.device != x.device:
         raise ValueError(f"fused ResBlock half-step: packed weights "
                          f"{tuple(packed.shape)} for {c} channels")
-    f32 = lambda t: t.to(x.device, torch.float32).contiguous()
-    gn_scale, gn_bias, conv_bias = f32(gn_scale), f32(gn_bias), f32(conv_bias)
+    gn_scale, gn_bias, conv_bias = (_float32(t, x.device)
+                                    for t in (gn_scale, gn_bias, conv_bias))
     if gn_scale.shape != (c,) or gn_bias.shape != (c,) or (
             conv_bias.shape != (o,)):
         raise ValueError("fused ResBlock half-step: norm and bias widths")
@@ -107,14 +128,27 @@ def _launch(x, gn_scale, gn_bias, packed, conv_bias, num_groups, eps):
     ws = torch.empty((n, chunks, 2, c), device=x.device, dtype=torch.float32)
     coef = torch.empty((n, 2, c), device=x.device, dtype=torch.float32)
     out = torch.empty((n, h, w, o), device=x.device, dtype=x.dtype)
+    plan, plan_ints = gemm_plan.cached_conv_plan((n, h, w, c), o,
+                                                 x.element_size())
+    partials, counters = gemm_plan.split_scratch(
+        x.device, plan.workspace_floats, plan.tiles)
     code = _build.library().upgpt_fused_resblock(
         x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
         packed.data_ptr(), conv_bias.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), coef.data_ptr(), n, h, w, c, o, num_groups, chunks,
-        eps, int(x.dtype == torch.bfloat16),
+        ws.data_ptr(), coef.data_ptr(), plan_ints,
+        None if partials is None else partials.data_ptr(),
+        plan.workspace_floats,
+        None if counters is None else counters.data_ptr(),
+        0 if counters is None else counters.numel(), n, h, w, c, o,
+        num_groups, chunks, eps, int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "fused_gn_silu_conv")
-    fused_gn_silu_conv.launches += 1
+    if x.dtype == torch.bfloat16:
+        fused_gn_silu_conv.launches += 1
+        by_shape = fused_gn_silu_conv.launches_by_shape
+        by_shape[(n, h, w, c, o)] = by_shape.get((n, h, w, c, o), 0) + 1
+    else:
+        fused_gn_silu_conv.fp32_launches += 1
     return out
 
 
@@ -166,5 +200,9 @@ def fused_gn_silu_conv(x: torch.Tensor, gn_scale: torch.Tensor,
 
 
 fused_gn_silu_conv.launches = 0  # kernel launches since the last reset
+# the same bf16 launches by (B, H, W, C, O); reset by assigning {}
+fused_gn_silu_conv.launches_by_shape = {}
+# launches of the kernel's float32 instantiation (no path runs float32)
+fused_gn_silu_conv.fp32_launches = 0
 # level-2 half-steps that the gate sent to the plain path instead
 fused_gn_silu_conv.plain_routes = 0

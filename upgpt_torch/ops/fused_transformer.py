@@ -10,9 +10,12 @@ a bf16 residual stream rounded after every sub-block. The kernel is
 `csrc/fused_transformer.cu`, which replaces `_fused_forward` /
 `_block_kernel`. One TPU program per sample does not fit a Hopper SM, so on
 this card the block is eleven launches from one C call: GroupNorm
-statistics, seven tiled tensor-core products with norm prologues and
-bias/scale/residual/GEGLU epilogues, and two passes of the shared attention
-routine over the packed activations. Both variants are ported: cross K/V
+statistics, seven products on the pipelined wgmma mainloop of
+`csrc/gemm_sm90.cuh` (weights by TMA; norm prologues applied once to a
+block's A panel in shared memory; bias/scale/residual/GEGLU epilogues on the
+accumulator registers), and two passes of the shared attention routine over
+the packed activations. Each product's tile, split of K and ring depth come
+from `gemm_plan.transformer_plans`. Both variants are ported: cross K/V
 precomputed by the sampler (`precompute_cross_kv`), and the training
 variant (`kv=None`), where the same call first projects the context through
 attn2's `to_k` and `to_v` (a twelfth launch).
@@ -40,7 +43,7 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
-from upgpt_torch.ops import _build
+from upgpt_torch.ops import _build, gemm_plan
 from upgpt_torch.ops.basic import group_norm
 
 Tree = Mapping[str, object]
@@ -150,7 +153,7 @@ def transformer_block_reference(
 
 # ---------------------------------------------------------------- kernel
 
-_MAX_NORM_WIDTH = 512  # csrc: norm prologues stage one row's scale/shift
+_MAX_NORM_WIDTH = 512  # csrc: norm prologues hold a (BM, C) panel
 _MAX_TOKENS = 1024     # keeps the attention score tile at <= 64 KB a block
 
 # the tree's leaves in the order the autograd.Function takes them
@@ -203,7 +206,7 @@ def fused_transformer_qualifies(t: int, c: int, heads: int, tk: int,
     """Whether the CUDA kernel takes a block of this shape.
 
     Re-derived for Hopper's shared memory: the GroupNorm/LayerNorm
-    prologues stage a whole row's scale and shift (C <= 512), and the
+    prologues hold a block's whole (BM, C) panel (C <= 512), and the
     attention pass keeps a (16 x T) float32 score tile per block
     (T <= 1024 keeps it at 64 KB, two blocks per SM). ds1 (768, 224) and
     ds2 (192, 448) of the 256px nets qualify; the 896-channel ds4 and mid
@@ -231,9 +234,9 @@ def _launch(x: torch.Tensor, p: Tree, heads: int, context, kv,
         tk, ctx_dim = context.shape[1], context.shape[-1]
         k = v = None
         ctx, wk2, wv2 = context, a2["to_k"]["weight"], a2["to_v"]["weight"]
-        if ctx_dim % 2:
-            raise ValueError(f"fused transformer kernel takes an even "
-                             f"context width, got {ctx_dim}")
+        if ctx_dim % 8:
+            raise ValueError(f"fused transformer kernel takes a context "
+                             f"width that is a multiple of 8, got {ctx_dim}")
     if not fused_transformer_qualifies(t, c, heads, tk):
         raise ValueError(
             f"fused transformer kernel does not take T={t}, C={c}, "
@@ -276,8 +279,14 @@ def _launch(x: torch.Tensor, p: Tree, heads: int, context, kv,
     ws = torch.empty(10 * b * t * c + (2 * b * tk * c if kv is None else 0),
                      dtype=torch.bfloat16, device=x.device)
     stats = torch.empty(b * 64, dtype=torch.float32, device=x.device)
+    _, plan, (floats, tiles) = gemm_plan.cached_transformer_plans(
+        b, t, c, tk, None if kv is not None else ctx_dim)
+    partials, counters = gemm_plan.split_scratch(x.device, floats, tiles)
     code = _build.library().upgpt_fused_transformer_block(
         ptrs[0], out.data_ptr(), *ptrs[1:], ws.data_ptr(), stats.data_ptr(),
+        plan, None if partials is None else partials.data_ptr(), floats,
+        None if counters is None else counters.data_ptr(),
+        0 if counters is None else counters.numel(),
         b, t, c, heads, tk, ctx_dim, gn_eps, 1.0 / math.sqrt(c // heads),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "fused_transformer_block")
