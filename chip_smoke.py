@@ -10,9 +10,12 @@ CUDA toolkit. It
    source, in parallel, sm_90a);
 2. holds each kernel against its plain PyTorch version in bf16 at the
    shapes the three paths below give it (sampling at batch 8, training at
-   batch 12, the chain at batch 4; the half-step kernel after step 5, at
-   every (shape, O) the chain run launched it at, with the launches its
-   counter recorded there), and times the
+   batch 12, the chain at batch 4; the half-step kernel and the two
+   GroupNorm kernels after step 5, at every shape the train step and the
+   chain run launched them at, with the launches their counters recorded
+   there; the GroupNorm statistics alone at the half-step's shapes; an
+   empty kernel's device time as the latency floor; the GroupNorm kernels
+   twice, bit for bit, and on two streams at once), and times the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call (`library_ms`, a yardstick the port never calls;
    for the transformer block, which no one call computes, its products as
@@ -102,6 +105,29 @@ CHAIN_IMAGE_REL_L2 = 5e-2
 BATCH, STEPS, TIMED_RUNS = 8, 50, 3
 TRAIN_BATCH, TRAIN_STEPS, LEARNING_RATE = 12, 5, 2e-6
 CHAIN_BATCH, CHAIN_TIMED_RUNS = 4, 2
+# K5's and K6's launches by ((N, H, W, C), kernel) per train step and per
+# chain run, as the models' structure and the gates give them: the U-Net's
+# level-1 GroupNorm+SiLU inputs and out head at batch 12; the out head,
+# the kl-f8 decoder's 32x24 norms (K5) and the two decoders' larger norms
+# (K6) at batch 4. The paths check them on the card, the CPU tests
+# (tests/test_torch_gn_plan.py) against the structure.
+_K5, _K6 = "fused_group_norm", "tiled_group_norm"
+GN_LAUNCHES = {
+    "training": {
+        ((12, 32, 24, 224), _K5): 8, ((12, 32, 24, 448), _K5): 2,
+        ((12, 32, 24, 672), _K5): 1, ((12, 16, 12, 224), _K5): 1,
+        ((12, 16, 12, 448), _K5): 6, ((12, 16, 12, 672), _K5): 1,
+        ((12, 16, 12, 896), _K5): 1, ((12, 16, 12, 1344), _K5): 1,
+        ((12, 8, 6, 448), _K5): 1, ((12, 8, 6, 896), _K5): 6,
+        ((12, 8, 6, 1344), _K5): 1, ((12, 8, 6, 1792), _K5): 2,
+        ((12, 4, 3, 896), _K5): 11, ((12, 4, 3, 1792), _K5): 3},
+    "chain": {
+        ((4, 32, 24, 224), _K5): 50, ((4, 32, 24, 512), _K5): 11,
+        ((4, 64, 48, 512), _K6): 6, ((4, 128, 96, 256), _K6): 5,
+        ((4, 128, 96, 512), _K6): 12, ((4, 256, 192, 128), _K6): 6,
+        ((4, 256, 192, 256), _K6): 6, ((4, 256, 192, 512), _K6): 1,
+        ((4, 512, 384, 128), _K6): 6, ((4, 512, 384, 256), _K6): 1},
+}
 CONTEXT_TOKENS = 87  # 77 text + 9 style + 1 pose
 UP_CONTEXT_TOKENS = 86  # the upscale stage has no pose token
 # NVIDIA H100 SXM peaks (data sheet, dense): bf16 tensor cores, float32
@@ -276,7 +302,6 @@ def _block_gemm_library_ms(b, t, c, tk, ctx_dim, randn):
 
 def kernel_checks(dev) -> dict:
     from upgpt_torch.ops import flash_attention as fa
-    from upgpt_torch.ops import fused_gn as fg
     from upgpt_torch.ops import fused_transformer as ft
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -329,31 +354,6 @@ def kernel_checks(dev) -> dict:
                 lambda: fa._reference_attention(q, k, v),
                 (4 * bh * t * t * d, 2 * 4 * bh * t * d, PEAK_BF16),
                 lambda: F.scaled_dot_product_attention(q, k, v)))
-        # K5 at the training batch: the narrowest, widest and deepest
-        # ResBlock inputs, and the out head; at the chain batch, the U-Net
-        # out head (eps 1e-5) and the kl-f8 decoder's 32x24 norms (1e-6)
-        for shape, path, eps in [
-                ((TRAIN_BATCH, 32, 24, 224), "training", 1e-5),
-                ((TRAIN_BATCH, 32, 24, 672), "training", 1e-5),
-                ((TRAIN_BATCH, 4, 3, 1792), "training", 1e-5),
-                ((TRAIN_BATCH, 16, 12, 448), "training", 1e-5),
-                ((CHAIN_BATCH, 32, 24, 224), "chain", 1e-5),
-                ((CHAIN_BATCH, 32, 24, 512), "chain", 1e-6)]:
-            x = (2 * randn(shape) + 0.5).bfloat16()
-            scale = 1 + 0.1 * randn(shape[-1])
-            bias = 0.1 * randn(shape[-1])
-            n = x.numel()
-            # torch's GroupNorm takes its affine parameters in x's dtype
-            lib_scale, lib_bias = scale.bfloat16(), bias.bfloat16()
-            cases["fused_group_norm"].append(_compare(
-                "fused_group_norm", shape, path,
-                lambda: fg.fused_group_norm(x, scale, bias, 32, eps, True),
-                lambda: fg._reference_gn(x, scale, bias, 32, eps, True),
-                # 3 for the sums, 4 for the affine normalise, 3 for SiLU
-                (10 * n, 2 * 2 * n + 2 * 4 * shape[-1], PEAK_F32),
-                lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32,
-                                            lib_scale, lib_bias, eps))))
-        tiled_checks(cases, randn)
     backward_checks(cases, randn)
     return cases
 
@@ -407,47 +407,155 @@ def backward_checks(cases, randn) -> None:
         torch.cuda.empty_cache()
 
 
-def tiled_checks(cases, randn) -> None:
-    """K6 at the chain's decode shapes: the kl-f8 decoder's 64x48 and
-    256x192 levels, the kl-f4 decoder's 128x96 and 512x384. The row is the
-    whole route (statistics, then normalize + SiLU); the statistics and the
-    normalize pass are timed alone beside it."""
+def _gn_work(shape, flops_per_value):
+    """GroupNorm's bound: float32 operations on the values, x read once
+    and written once in bf16, and the float32 scale and shift."""
+    n = math.prod(shape)
+    return flops_per_value * n, 2 * 2 * n + 2 * 4 * shape[-1], PEAK_F32
+
+
+def latency_floor_ms(blocks: int = 1, cluster: int = 0) -> float:
+    """Device time of an empty kernel of `blocks` blocks, launched as
+    clusters of `cluster` blocks (0: a plain launch), replayed from a CUDA
+    graph: the floor under any one launch of that shape, beside the
+    GroupNorm kernels' bounds."""
+    from upgpt_torch.ops import _build
+
+    lib = _build.library()
+    return _graph_ms(lambda: _build.check(lib.upgpt_empty(
+        blocks, cluster, torch.cuda.current_stream().cuda_stream),
+        "empty"), 50)
+
+
+def groupnorm_checks(dev, by_path: dict, k7_shapes) -> dict:
+    """K5 and K6 at every shape the train step and the chain run launched
+    them at (`launches_by_shape`), each row with the launches per run
+    counted there; K6 also as statistics and normalize alone; the
+    statistics alone (with the half-step's affine, as K7's first launch)
+    at K7's chain shapes. All bf16 with SiLU, eps 1e-5 (K5) and 1e-6 (K6,
+    the VAE's). Then each kernel twice, bit for bit, and on two streams at
+    once against one. The library yardstick is `F.group_norm` + `F.silu`
+    on the channels-last view."""
     from upgpt_torch.ops import fused_gn as fg
 
-    for shape in [(CHAIN_BATCH, 64, 48, 512), (CHAIN_BATCH, 256, 192, 128),
-                  (CHAIN_BATCH, 128, 96, 512), (CHAIN_BATCH, 512, 384, 128)]:
-        x = (2 * randn(shape) + 0.3).bfloat16()
-        scale = 1 + 0.1 * randn(shape[-1])
-        bias = 0.1 * randn(shape[-1])
-        lib_scale, lib_bias = scale.bfloat16(), bias.bfloat16()
-        n = x.numel()
-        row = _compare(
-            "tiled_group_norm", shape, "chain",
-            lambda: fg.tiled_group_norm(x, scale, bias, 32, 1e-6, True),
-            lambda: fg._reference_tiled(x, scale, bias, 32, 1e-6, True),
-            # 4 for the sums, 2 for x * a + b, 3 for SiLU; x read once and
-            # written once
-            (9 * n, 2 * 2 * n + 2 * 4 * shape[-1], PEAK_F32),
-            lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32,
-                                        lib_scale, lib_bias, 1e-6)))
-        # the statistics kernels alone (bytes: one read of x) and the
-        # normalize pass alone, each against its twin
-        stats = fg._stats_launch(x, 32, 1e-6)
-        parts = {
-            "stats": _compare(
-                "gn_stats", shape, "chain",
-                lambda: fg._stats_launch(x, 32, 1e-6),
-                lambda: fg._reference_gn_stats(x, 32, 1e-6),
-                (4 * n, 2 * n + 4 * 2 * shape[0] * shape[-1], PEAK_F32)),
-            "apply": _compare(
-                "gn_apply", shape, "chain",
-                lambda: fg._apply_launch(x, stats, scale, bias, True),
-                lambda: fg._reference_gn_apply(x, stats, scale, bias, True),
-                (5 * n, 2 * 2 * n, PEAK_F32))}
-        for part, res in parts.items():
-            for key in ("ms", "plain_ms", "bound_ms", "rel_err"):
-                row[f"{part}_{key}"] = res[key]
-        cases["tiled_group_norm"].append(row)
+    g = torch.Generator(device=dev).manual_seed(50)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    floor = latency_floor_ms()
+    # the same, launched as K5's clusters are at the training batch
+    cluster_floor = latency_floor_ms(TRAIN_BATCH * 8, 8)
+    print(f"latency floor: an empty kernel replayed from a CUDA graph "
+          f"{floor:.4f} ms; {TRAIN_BATCH * 8} blocks in clusters of 8 "
+          f"{cluster_floor:.4f} ms", flush=True)
+
+    def inputs(shape):
+        x = (2 * randn(shape) + 0.5).bfloat16()
+        return x, 1 + 0.1 * randn(shape[-1]), 0.1 * randn(shape[-1])
+
+    def library(x, scale, bias, eps):
+        ls, lb = scale.bfloat16(), bias.bfloat16()
+        return lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32, ls, lb,
+                                           eps))
+
+    out = {"fused_group_norm": [], "tiled_group_norm": [], "gn_stats_k7": [],
+           "latency_floor_ms": floor, "cluster_floor_ms": cluster_floor}
+    for path, kernels in by_path.items():
+        for (shape, kind), runs in sorted(kernels.items()):
+            x, scale, bias = inputs(shape)
+            if kind == "fused_group_norm":
+                row = _compare(
+                    "fused_group_norm", shape, path,
+                    lambda: fg.fused_group_norm(x, scale, bias, 32, 1e-5,
+                                                True),
+                    lambda: fg._reference_gn(x, scale, bias, 32, 1e-5, True),
+                    # 3 for the sums, 4 for the affine normalise, 3 for SiLU
+                    _gn_work(shape, 10), library(x, scale, bias, 1e-5))
+                row["cluster"] = fg.fused_gn_plan(shape, 32, 2).cluster
+            else:
+                row = _compare(
+                    "tiled_group_norm", shape, path,
+                    lambda: fg.tiled_group_norm(x, scale, bias, 32, 1e-6,
+                                                True),
+                    lambda: fg._reference_tiled(x, scale, bias, 32, 1e-6,
+                                                True),
+                    # 4 for the sums, 2 for x * a + b, 3 for SiLU
+                    _gn_work(shape, 9), library(x, scale, bias, 1e-6))
+                # where x exceeds L2, the normalize pass reads it again
+                row["two_read_floor_ms"] = 3 * 2 * math.prod(shape) / (
+                    PEAK_BYTES * 1e-3)
+                stats = fg._stats_launch(x, 32, 1e-6)
+                parts = {
+                    "stats": _compare(
+                        "gn_stats", shape, path,
+                        lambda: fg._stats_launch(x, 32, 1e-6),
+                        lambda: fg._reference_gn_stats(x, 32, 1e-6),
+                        (4 * math.prod(shape),
+                         2 * math.prod(shape) + 4 * 2 * shape[0] * shape[-1],
+                         PEAK_F32)),
+                    "apply": _compare(
+                        "gn_apply", shape, path,
+                        lambda: fg._apply_launch(x, stats, scale, bias, True),
+                        lambda: fg._reference_gn_apply(x, stats, scale, bias,
+                                                       True),
+                        (5 * math.prod(shape), 2 * 2 * math.prod(shape),
+                         PEAK_F32))}
+                for part, res in parts.items():
+                    for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "rel_err"):
+                        row[f"{part}_{key}"] = res[key]
+            row["launches_per_run"] = runs
+            out[kind].append(row)
+            del x
+    # the statistics alone at K7's shapes, writing K7's [a; b]
+    for shape in k7_shapes:
+        x, scale, bias = inputs(shape)
+
+        def coef_twin():
+            st = fg._reference_gn_stats(x, 32, 1e-5)
+            a = st[:, 1] * scale
+            return torch.stack([a, bias - st[:, 0] * a], 1)
+
+        out["gn_stats_k7"].append(_compare(
+            "gn_stats[K7 head]", shape, "chain",
+            lambda: fg._stats_launch(x, 32, 1e-5, scale, bias), coef_twin,
+            (4 * math.prod(shape),
+             2 * math.prod(shape) + 4 * 2 * shape[0] * shape[-1]
+             + 2 * 4 * shape[-1], PEAK_F32)))
+    _repeat_checks(fg, inputs)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _repeat_checks(fg, inputs) -> None:
+    """K5, K6 and K6's statistics: two calls give the same bits, and calls
+    on two streams at once give the bits each gives alone (each stream
+    counts its images in counters of its own)."""
+    calls = [
+        ("fused_group_norm", (CHAIN_BATCH, 32, 24, 512),
+         lambda x, s, b: fg.fused_group_norm(x, s, b, 32, 1e-5, True)),
+        ("tiled_group_norm", (CHAIN_BATCH, 64, 48, 512),
+         lambda x, s, b: fg.tiled_group_norm(x, s, b, 32, 1e-6, True)),
+        ("gn_stats[K7 head]", (CHAIN_BATCH, 16, 12, 896),
+         lambda x, s, b: fg._stats_launch(x, 32, 1e-5, s, b))]
+    for name, shape, call in calls:
+        args = [inputs(shape) for _ in range(2)]
+        want = [call(*a) for a in args]
+        if not all(torch.equal(call(*a), w) for a, w in zip(args, want)):
+            raise RuntimeError(f"{name} {shape}: two calls differ")
+        streams = [torch.cuda.Stream() for _ in args]
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        got = [[], []]
+        for _ in range(10):
+            for k, st in enumerate(streams):
+                with torch.cuda.stream(st):
+                    got[k].append(call(*args[k]))
+        torch.cuda.synchronize()
+        if not all(torch.equal(t, want[k]) for k in range(2)
+                   for t in got[k]):
+            raise RuntimeError(f"{name} {shape}: two streams differ from "
+                               f"one")
+        print(f"{name} {shape}: bit for bit over two calls and over two "
+              f"streams at once", flush=True)
 
 
 def resblock_checks(dev, chain_shapes: dict) -> list:
@@ -620,9 +728,32 @@ _NO_FMA = {"flash_attention_fma": 0, "flash_backward_dq_fma": 0,
 def _reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
-    _counters()["fused_resblock"].launches_by_shape = {}
+    for name in ("fused_resblock", "fused_group_norm", "tiled_group_norm"):
+        _counters()[name].launches_by_shape = {}
+    _counters()["fused_group_norm"].clusters = 0
     for _, fn, attr in _routes():
         setattr(fn, attr, 0)
+
+
+def _gn_by_shape(counts: dict) -> dict:
+    """K5's and K6's launches by ((N, H, W, C), kernel) since the last
+    reset, checked against their launch counts, and K5's clusters against
+    one per image of every launch."""
+    fns = _counters()
+    out = {(shape, name): n
+           for name in ("fused_group_norm", "tiled_group_norm")
+           for shape, n in fns[name].launches_by_shape.items()}
+    for name in ("fused_group_norm", "tiled_group_norm"):
+        if sum(n for (_, k), n in out.items() if k == name) != counts[name]:
+            raise RuntimeError(f"{name} launches by shape {out} against "
+                               f"{counts[name]}")
+    clusters = sum(shape[0] * n for (shape, k), n in out.items()
+                   if k == "fused_group_norm")
+    if fns["fused_group_norm"].clusters != clusters:
+        raise RuntimeError(f"fused_group_norm launched "
+                           f"{fns['fused_group_norm'].clusters} clusters, "
+                           f"{clusters} expected")
+    return out
 
 
 def _read_counts() -> dict:
@@ -835,7 +966,7 @@ def train_run(dev, card: str) -> dict:
     print(f"training warm-up step: {time.perf_counter() - t0:.3f} s, loss "
           f"{metrics['loss'].item():.6f}", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    times, counts, losses = [], [], []
+    times, counts, losses, gn_shapes = [], [], [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         _reset_counts()
@@ -844,13 +975,16 @@ def train_run(dev, card: str) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts.append(_read_counts())
+        gn_shapes.append(_gn_by_shape(counts[-1]))
         losses.append(metrics["loss"].item())
         if not math.isfinite(losses[-1]):
             raise RuntimeError(f"non-finite training loss {losses}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    if any(c != expected for c in counts):
+    if any(c != expected for c in counts) or any(
+            d != GN_LAUNCHES["training"] for d in gn_shapes):
         raise RuntimeError(f"training launch counts {counts}, expected "
-                           f"{expected} per step")
+                           f"{expected} per step; GroupNorm by shape "
+                           f"{gn_shapes}")
     moved = sum(not torch.equal(a, p) for a, p in zip(start, state.params))
     shadow = sum(not torch.equal(a, s) for a, s in zip(start, state.ema.shadow))
     if moved == 0 or shadow == 0:
@@ -864,7 +998,8 @@ def train_run(dev, card: str) -> dict:
           f"{moved}/{len(start)} parameters and {shadow} EMA tensors moved; "
           f"peak memory {peak_gb:.3f} GiB; launches per step {counts[0]}",
           flush=True)
-    return {"launches": counts[0], "ms_per_step": [1e3 * t for t in times],
+    return {"launches": counts[0], "gn_by_shape": gn_shapes[0],
+            "ms_per_step": [1e3 * t for t in times],
             "img_per_s": TRAIN_BATCH / ms * 1e3, "losses": losses,
             "peak_memory_gib": peak_gb, **e2e}
 
@@ -1039,7 +1174,7 @@ def chain_run(dev, card: str) -> dict:
     torch.cuda.synchronize()
     print(f"chain warm-up run: {time.perf_counter() - t0:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    times, counts, by_shape = [], [], []
+    times, counts, by_shape, gn_shapes = [], [], [], []
     for i in range(CHAIN_TIMED_RUNS):
         gen = torch.Generator(device=dev).manual_seed(40 + i)
         torch.cuda.synchronize()
@@ -1050,6 +1185,7 @@ def chain_run(dev, card: str) -> dict:
         times.append(time.perf_counter() - t0)
         counts.append(_read_counts())
         by_shape.append(dict(frb.fused_gn_silu_conv.launches_by_shape))
+        gn_shapes.append(_gn_by_shape(counts[-1]))
         if tuple(out.shape) != (CHAIN_BATCH,) + image or (
                 out.dtype != torch.uint8):
             raise RuntimeError(f"chain output {tuple(out.shape)} {out.dtype}")
@@ -1064,6 +1200,9 @@ def chain_run(dev, card: str) -> dict:
     if any(d != by_shape[0] for d in by_shape) or (
             sum(by_shape[0].values()) != counts[0]["fused_resblock"]):
         raise RuntimeError(f"chain K7 launches by shape {by_shape}")
+    if any(d != GN_LAUNCHES["chain"] for d in gn_shapes):
+        raise RuntimeError(f"chain GroupNorm launches by shape {gn_shapes}, "
+                           f"expected {GN_LAUNCHES['chain']} per run")
     sec = min(times)
     print(f"chain DDIM-{STEPS} eta 1 (interp_256 -> upscale) batch "
           f"{CHAIN_BATCH} -> uint8 {tuple(out.shape)}: "
@@ -1071,6 +1210,7 @@ def chain_run(dev, card: str) -> dict:
           f"s/batch = {CHAIN_BATCH / sec:.4f} img/s on {card}; peak memory "
           f"{peak_gb:.3f} GiB; launches per run {counts[0]}", flush=True)
     return {"launches": counts[0], "k7_by_shape": by_shape[0],
+            "gn_by_shape": gn_shapes[0],
             "s_per_batch": times,
             "img_per_s": CHAIN_BATCH / sec, "peak_memory_gib": peak_gb,
             **e2e}
@@ -1130,6 +1270,12 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
             entry["chain_run_device_ms"] = sum(
                 c["device_ms"] * c["launches_per_chain_run"]
                 for c in on_path)
+    if name in ("fused_group_norm", "tiled_group_norm") and None not in dev:
+        # each path's time in these kernels per run: device ms by launches
+        entry["run_device_ms"] = {
+            path: sum(c["device_ms"] * c["launches_per_run"]
+                      for c in on_path if c["path"] == path)
+            for path in sorted({c["path"] for c in on_path})}
     if name == "flash_backward_dq":
         entry["library_covers"] = "dq, dk and dv together"
     return entry
@@ -1164,7 +1310,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     chain = chain_run(dev, card)
     torch.cuda.empty_cache()
-    cases["fused_resblock"] = resblock_checks(dev, chain.pop("k7_by_shape"))
+    k7_by_shape = chain.pop("k7_by_shape")
+    cases["fused_resblock"] = resblock_checks(dev, k7_by_shape)
+    gn = groupnorm_checks(dev, {"training": training.pop("gn_by_shape"),
+                                "chain": chain.pop("gn_by_shape")},
+                          sorted({key[:4] for key in k7_by_shape}))
+    cases["fused_group_norm"] = gn["fused_group_norm"]
+    cases["tiled_group_norm"] = gn["tiled_group_norm"]
 
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain}
@@ -1173,6 +1325,13 @@ def main() -> None:
         for k, src, rep in KERNELS]
     next(k for k in kernels if k["name"] == "fused_resblock")[
         "gradient_rel_err"] = grad_rel
+    tiled = next(k for k in kernels if k["name"] == "tiled_group_norm")
+    tiled["k7_head_cases"] = gn["gn_stats_k7"]
+    for k in kernels:
+        if k["name"] in ("fused_group_norm", "tiled_group_norm"):
+            k["latency_floor_ms"] = gn["latency_floor_ms"]
+    next(k for k in kernels if k["name"] == "fused_group_norm")[
+        "cluster_floor_ms"] = gn["cluster_floor_ms"]
     print(json.dumps({path: {k: v for k, v in run.items()
                              if k != "launches"}
                       for path, run in runs.items()}), flush=True)

@@ -5,7 +5,9 @@ one NVIDIA GPU.
     python3 profile_slice.py --train [batch ...]  (default: 12)
     python3 profile_slice.py --chain [batch ...]  (default: 4)
     python3 profile_slice.py --plans
+    python3 profile_slice.py --gn-plans
     python3 profile_slice.py --resblock PARENT_CHECKOUT
+    python3 profile_slice.py --groupnorm PARENT_CHECKOUT
 
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit. For each batch it builds interp_256 at full width with seeded
@@ -40,10 +42,20 @@ beside the fastest, and the non-negative least-squares weights of K7's
 cost model (`gemm_plan.TERMS`) that fit its times, as `CONV_WEIGHTS` takes
 them.
 
+`--gn-plans` times K5 at every cluster size whose slabs fit and K6's
+statistics (with K7's affine) at chunk counts from one to two blocks per
+SM, at every shape the paths give them, and prints where the chosen plan
+ranks.
+
 `--resblock PARENT_CHECKOUT` times K7 of this checkout and of another
 (an unpacked `git archive` of the parent commit) in turns, in CUDA graphs
 on the same inputs, at every (shape, O) the chain launches it at, beside
 the library's three calls, with each one's error against the twin.
+`--groupnorm PARENT_CHECKOUT` does the same for the GroupNorm kernels: K5
+and K6 at every shape the train step and the chain launch them at, K6's
+statistics alone at K7's chain shapes, each beside its bound, the latency
+floor (an empty kernel) and `F.group_norm` + `F.silu`. Both flags may be
+given in one call.
 
 The card's name and power limit are printed first.
 """
@@ -60,8 +72,7 @@ import chip_smoke
 
 STEPS = 50
 
-# (kind, test on the lower-cased kernel name), first match wins; the
-# optimizer's multi_tensor_apply_kernel comes before K6's apply_kernel
+# (kind, test on the lower-cased kernel name), first match wins
 KINDS = [
     ("optimizer and EMA (foreach)", lambda n: "multi_tensor" in n),
     ("attention (csrc, K1 and flash)",
@@ -71,10 +82,9 @@ KINDS = [
     ("flash backward K4 (csrc)",
      lambda n: any(s in n for s in ("dq_mma_kernel", "dkv_mma_kernel",
                                     "dq_fma_kernel", "dkv_fma_kernel"))),
-    ("GroupNorm+SiLU K5 (csrc)", lambda n: "gn_kernel<" in n),
-    ("GroupNorm stats K6/K7 (csrc)", lambda n: "partial_kernel<" in n
-     or "finalize_kernel" in n),
-    ("GroupNorm apply K6 (csrc)", lambda n: "apply_kernel<" in n),
+    ("GroupNorm+SiLU K5 (csrc)", lambda n: "cluster_gn_kernel<" in n),
+    ("GroupNorm stats K6/K7 (csrc)", lambda n: "tiled_stats_kernel<" in n),
+    ("GroupNorm apply K6 (csrc)", lambda n: "tiled_apply_kernel<" in n),
     ("GN+SiLU+conv K7 (csrc)", lambda n: "conv_kernel<" in n),
     ("memcpy / memset", lambda n: n.startswith(("memcpy", "memset"))),
     ("convolutions (cuDNN)",
@@ -370,6 +380,126 @@ def resblock_ab(dev, card: str, parent: str) -> None:
                   f"{card}", flush=True)
 
 
+def groupnorm_ab(dev, card: str, parent: str) -> None:
+    """K5 and K6 of this checkout and of the checkout `parent` in turns
+    (parent, this, this, parent), in CUDA graphs, on the same inputs, at
+    every shape the train step and the chain launch them at
+    (chip_smoke.GN_LAUNCHES), and K6's statistics alone at every shape the
+    chain launches the half-step kernel (K7) at, whose first launch they
+    are; each beside its bound, the latency floor, the library's
+    `F.group_norm` + `F.silu` and its error against the twin."""
+    import math
+
+    import torch.nn.functional as F
+
+    from upgpt_torch.ops import fused_gn as ours
+
+    k7_shapes = sorted({key[:4] for key in chain_resblock_shapes(dev)})
+    theirs = _import_tree(parent, "upgpt_torch.ops.fused_gn")
+    floor = chip_smoke.latency_floor_ms()
+    print(f"latency floor: an empty kernel replayed from a CUDA graph "
+          f"{floor:.4f} ms on {card}", flush=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = [(kind, shape, path, n)
+            for path, kernels in chip_smoke.GN_LAUNCHES.items()
+            for (shape, kind), n in sorted(kernels.items())]
+    rows += [("stats", shape, "chain (K7 head)", None) for shape in k7_shapes]
+    with torch.no_grad():
+        for kind, shape, path, runs in rows:
+            x = (2 * torch.randn(shape, generator=g, device=dev)
+                 + 0.5).bfloat16()
+            scale = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+            bias = 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+            eps = 1e-6 if kind == "tiled_group_norm" else 1e-5
+            values = math.prod(shape)
+            if kind == "stats":
+                fns = {k: (lambda m=m: m._stats_launch(x, 32, eps))
+                       for k, m in (("parent", theirs), ("this", ours))}
+                want = ours._reference_gn_stats(x, 32, eps)
+                work = (4 * values, 2 * values, chip_smoke.PEAK_F32)
+                lib = None
+            else:
+                fns = {k: (lambda m=m: getattr(m, kind)(x, scale, bias, 32,
+                                                        eps, True))
+                       for k, m in (("parent", theirs), ("this", ours))}
+                want = ours._reference_gn(x, scale, bias, 32, eps, True)
+                work = chip_smoke._gn_work(
+                    shape, 10 if kind == "fused_group_norm" else 9)
+                lib = chip_smoke._graph_ms(lambda: F.silu(F.group_norm(
+                    x.permute(0, 3, 1, 2), 32, scale.bfloat16(),
+                    bias.bfloat16(), eps)))
+            _ab_line(f"{kind} {shape} [{path}, {runs} a run]", fns, want,
+                     work, lib, card)
+
+
+def sweep_gn_plans(dev, card: str) -> None:
+    """K5 at every cluster size whose slabs fit, and K6's statistics at
+    chunk counts from one to the card's two blocks per SM, in CUDA graphs,
+    at every shape the paths give them (chip_smoke.GN_LAUNCHES and K7's
+    chain shapes): where the chosen plan ranks."""
+    from upgpt_torch.ops import fused_gn as fg
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    k7_shapes = sorted({key[:4] for key in chain_resblock_shapes(dev)})
+    gn = [(shape, kind) for kernels in chip_smoke.GN_LAUNCHES.values()
+          for shape, kind in sorted(kernels)]
+    chosen_chunks = fg.stats_chunks
+    with torch.no_grad():
+        for shape, kind in gn + [(s, "k7 head") for s in k7_shapes]:
+            x = (2 * torch.randn(shape, generator=g, device=dev)
+                 + 0.5).bfloat16()
+            scale = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+            bias = 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+            timed = []
+            if kind == "fused_group_norm":
+                chosen = fg.fused_gn_plan(shape, 32, 2).cluster
+                for k in (1, 2, 4, 8, 16):
+                    plan = fg.cluster_plan(shape, 32, 2, k)
+                    if plan is not None:
+                        timed.append((chip_smoke._graph_ms(
+                            lambda p=plan: fg._launch(x, scale, bias, 32,
+                                                      1e-5, True, p)), k))
+                what = "K5 blocks per image"
+            else:
+                chosen = chosen_chunks(shape, 2)
+                hw, n = shape[1] * shape[2], shape[0]
+                counts = sorted({c for c in (1, 2, 4, 8, 16, 32, 64,
+                                             -(-2 * fg.SMS // n), chosen)
+                                 if c <= hw})
+                for c in counts:
+                    fg.stats_chunks = lambda *a, c=c: c
+                    timed.append((chip_smoke._graph_ms(
+                        lambda: fg._stats_launch(x, 32, 1e-5, scale, bias)),
+                        c))
+                fg.stats_chunks = chosen_chunks
+                what = "K6 statistics chunks per image"
+            timed.sort()
+            rank = next(i for i, (_, p) in enumerate(timed) if p == chosen)
+            print(f"{what} {shape} [{kind}]: "
+                  + " ".join(f"{p}:{ms:.4f}" for ms, p in sorted(
+                      timed, key=lambda r: r[1]))
+                  + f" ms; chosen {chosen} rank {rank + 1} of {len(timed)} "
+                  f"on {card}", flush=True)
+
+
+def _ab_line(label, fns, want, work, lib, card) -> None:
+    """Each call's error against `want` and its device time in turns
+    (first, second, second, first), printed beside the bound."""
+    rel = {k: ((f().float() - want.float()).abs().max()
+               / want.float().abs().max()).item() for k, f in fns.items()}
+    a, b = list(fns)
+    ms = {k: [] for k in fns}
+    for k in (a, b, b, a):
+        ms[k].append(chip_smoke._graph_ms(fns[k]))
+    bound, by = chip_smoke._bound(*work)
+    times = "; ".join(f"{k} {' '.join(f'{t:.4f}' for t in v)} ms"
+                      for k, v in ms.items())
+    library = "" if lib is None else f", library {lib:.4f} ms"
+    errs = " ".join(f"{k} {v:.3e}" for k, v in rel.items())
+    print(f"{label}: {times} (device time, CUDA graph){library}, bound "
+          f"{bound:.4f} ms ({by}); max rel err {errs} on {card}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: no CUDA device; this script only "
@@ -379,9 +509,15 @@ def main() -> None:
     if "--plans" in sys.argv:
         sweep_plans(torch.device("cuda", 0), chip_smoke._card_line())
         return
-    if "--resblock" in sys.argv:
-        resblock_ab(torch.device("cuda", 0), chip_smoke._card_line(),
-                    sys.argv[sys.argv.index("--resblock") + 1])
+    if "--gn-plans" in sys.argv:
+        sweep_gn_plans(torch.device("cuda", 0), chip_smoke._card_line())
+        return
+    if "--resblock" in sys.argv or "--groupnorm" in sys.argv:
+        for flag, ab in (("--resblock", resblock_ab),
+                         ("--groupnorm", groupnorm_ab)):
+            if flag in sys.argv:
+                ab(torch.device("cuda", 0), chip_smoke._card_line(),
+                   sys.argv[sys.argv.index(flag) + 1])
         return
     train = "--train" in sys.argv
     chain = "--chain" in sys.argv

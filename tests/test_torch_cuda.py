@@ -262,23 +262,58 @@ def test_flash_backward_rejects_what_it_does_not_take(dev):
         fa.flash_backward_dq(q, q, q, q, q)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,silu,tol", [
-    ((12, 32, 24, 224), torch.bfloat16, True, 2e-2),
-    ((12, 32, 24, 672), torch.bfloat16, True, 2e-2),
-    ((12, 4, 3, 1792), torch.bfloat16, True, 2e-2),
-    ((12, 16, 12, 448), torch.bfloat16, False, 2e-2),
-    ((2, 8, 6, 224), torch.float32, True, 1e-5),
-])
-def test_fused_gn_kernel_matches_twin(dev, shape, dtype, silu, tol):
-    g = torch.Generator(device=dev).manual_seed(5)
+# K5's shapes on the paths: the U-Net's GroupNorm(+SiLU) inputs and out
+# head at the training batch, the out head and the kl-f8 decoder's 32x24
+# norms at the chain batch
+K5_PATH_SHAPES = [
+    (12, 32, 24, 224), (12, 32, 24, 448), (12, 32, 24, 672),
+    (12, 16, 12, 224), (12, 16, 12, 448), (12, 16, 12, 672),
+    (12, 16, 12, 896), (12, 16, 12, 1344), (12, 8, 6, 448),
+    (12, 8, 6, 896), (12, 8, 6, 1344), (12, 8, 6, 1792), (12, 4, 3, 896),
+    (12, 4, 3, 1792), (4, 32, 24, 224), (4, 32, 24, 512),
+]
+# K6's shapes on the chain: the kl-f8 and kl-f4 decoders past K5's gate
+K6_PATH_SHAPES = [
+    (4, 64, 48, 512), (4, 128, 96, 256), (4, 128, 96, 512),
+    (4, 256, 192, 128), (4, 256, 192, 256), (4, 256, 192, 512),
+    (4, 512, 384, 128), (4, 512, 384, 256),
+]
+# K7's chain shapes, whose first launch is K6's statistics
+K7_STATS_SHAPES = [
+    (4, 32, 24, 224), (4, 32, 24, 448), (4, 32, 24, 672), (4, 16, 12, 224),
+    (4, 16, 12, 448), (4, 16, 12, 672), (4, 16, 12, 896), (4, 8, 6, 448),
+    (4, 32, 24, 512),
+]
+
+
+def _gn_inputs(shape, dtype, dev, seed, groups=32):
+    g = torch.Generator(device=dev).manual_seed(seed)
     x = (2 * torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
     scale = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
     bias = 0.1 * torch.randn(shape[-1], generator=g, device=dev)
-    before = fg.fused_group_norm.launches
+    return x, scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,silu,tol", [
+    *((s, torch.bfloat16, True, 2e-2) for s in K5_PATH_SHAPES),
+    ((12, 16, 12, 448), torch.bfloat16, False, 2e-2),
+    ((3, 7, 13, 224), torch.bfloat16, True, 2e-2),   # 91 rows, 8 blocks
+    ((2, 4, 3, 2304), torch.bfloat16, True, 2e-2),   # two column passes
+    ((2, 3, 3, 2048), torch.bfloat16, True, 2e-2),   # blocks with no rows
+    ((2, 1, 3, 64), torch.bfloat16, True, 2e-2),     # one block an image
+    ((8, 64, 48, 256), torch.bfloat16, True, 2e-2),  # 1.5 MB an image
+    ((2, 8, 6, 224), torch.float32, True, 1e-5),
+    ((2, 32, 24, 672), torch.float32, True, 1e-5),   # a 16-block cluster
+])
+def test_fused_gn_kernel_matches_twin(dev, shape, dtype, silu, tol):
+    x, scale, bias = _gn_inputs(shape, dtype, dev, 5)
+    before = fg.fused_group_norm.launches, fg.fused_group_norm.clusters
     got = fg.fused_group_norm(x, scale, bias, 32, 1e-5, silu)
     torch.cuda.synchronize()
-    assert fg.fused_group_norm.launches == before + 1
+    # one launch, one cluster per image
+    assert (fg.fused_group_norm.launches - before[0],
+            fg.fused_group_norm.clusters - before[1]) == (1, shape[0])
     assert got.dtype == dtype
     assert _rel(got, fg._reference_gn(x, scale, bias, 32, 1e-5, silu)) < tol
 
@@ -300,6 +335,9 @@ def test_fused_gn_rejects_what_it_does_not_take(dev):
     assert (fg.fused_group_norm.launches,
             fg.tiled_group_norm.launches) == (before[0], before[1] + 1)
     assert torch.equal(out, torch.zeros_like(x))
+    # past the one-pass gate, the one-pass kernel itself refuses
+    with pytest.raises(ValueError):
+        fg._launch(x, ones, zeros, 32, 1e-5, True)
     # channels that are not a multiple of 8
     x = torch.zeros(1, 64, 64, 36, device=dev)
     with pytest.raises(ValueError):
@@ -307,35 +345,37 @@ def test_fused_gn_rejects_what_it_does_not_take(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,tol", [
-    ((4, 64, 48, 512), torch.bfloat16, 1e-5),     # kl-f8 decoder
-    ((4, 512, 384, 128), torch.bfloat16, 1e-5),   # kl-f4 decoder, 201 MB
-    ((2, 37, 23, 2048), torch.bfloat16, 1e-5),    # two column slabs
-    ((3, 50, 30, 96), torch.float32, 1e-5),       # 96 / 32 groups, float32
+@pytest.mark.parametrize("shape,dtype,groups,tol", [
+    *((s, torch.bfloat16, 32, 1e-5) for s in K6_PATH_SHAPES),
+    *((s, torch.bfloat16, 32, 1e-5) for s in K7_STATS_SHAPES),
+    ((2, 37, 23, 2048), torch.bfloat16, 32, 1e-5),  # two column slabs
+    ((3, 37, 23, 200), torch.bfloat16, 8, 1e-5),    # ragged chunks, 25 a group
+    ((3, 50, 30, 96), torch.float32, 32, 1e-5),     # 96 / 32 groups, float32
 ])
-def test_gn_stats_kernel_matches_twin(dev, shape, dtype, tol):
+def test_gn_stats_kernel_matches_twin(dev, shape, dtype, groups, tol):
     # float32 statistics of a shifted-mean input on both sides, summed in
-    # other orders: relative 1e-5
-    g = torch.Generator(device=dev).manual_seed(7)
-    x = (2 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dtype)
-    got = fg._stats_launch(x, 32, 1e-6)
+    # other orders: relative 1e-5; with gamma and beta the launch writes
+    # the half-step's [a; b] instead
+    x, scale, bias = _gn_inputs(shape, dtype, dev, 7)
+    want = fg._reference_gn_stats(x, groups, 1e-6)
+    got = fg._stats_launch(x, groups, 1e-6)
+    coef = fg._stats_launch(x, groups, 1e-6, scale, bias)
     torch.cuda.synchronize()
-    want = fg._reference_gn_stats(x, 32, 1e-6)
     assert got.shape == want.shape == (shape[0], 2, shape[-1])
     assert _rel(got, want) < tol
+    a = want[:, 1] * scale
+    assert _rel(coef, torch.stack([a, bias - want[:, 0] * a], 1)) < tol
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,silu,tol", [
-    ((4, 256, 192, 128), torch.bfloat16, True, 2e-2),
+    *((s, torch.bfloat16, True, 2e-2) for s in K6_PATH_SHAPES),
     ((4, 128, 96, 512), torch.bfloat16, False, 2e-2),
+    ((3, 37, 23, 2048), torch.bfloat16, True, 2e-2),  # ragged, two slabs
     ((2, 64, 48, 256), torch.float32, True, 1e-5),
 ])
 def test_tiled_group_norm_kernels_match_twin(dev, shape, dtype, silu, tol):
-    g = torch.Generator(device=dev).manual_seed(8)
-    x = (2 * torch.randn(shape, generator=g, device=dev) + 0.5).to(dtype)
-    scale = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
-    bias = 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+    x, scale, bias = _gn_inputs(shape, dtype, dev, 8)
     before = fg.tiled_group_norm.launches
     got = fg.tiled_group_norm(x, scale, bias, 32, 1e-6, silu)
     torch.cuda.synchronize()
@@ -343,6 +383,69 @@ def test_tiled_group_norm_kernels_match_twin(dev, shape, dtype, silu, tol):
     assert got.dtype == dtype
     want = fg._reference_tiled(x, scale, bias, 32, 1e-6, silu)
     assert _rel(got, want) < tol
+
+
+def _gn_routes():
+    """The GroupNorm kernels as calls: K5, K6 and K6's statistics with the
+    half-step's affine, at shapes that take each."""
+    return [
+        lambda x, s, b: fg.fused_group_norm(x, s, b, 32, 1e-5, True),
+        lambda x, s, b: fg.tiled_group_norm(x, s, b, 32, 1e-6, True),
+        lambda x, s, b: fg._stats_launch(x, 32, 1e-5, s, b),
+    ], [(4, 32, 24, 512), (4, 64, 48, 512), (4, 16, 12, 896)]
+
+
+@pytest.mark.cuda
+def test_group_norm_kernels_repeat_bit_for_bit(dev):
+    """Fixed-order sums, no float atomics: two calls give the same bits."""
+    calls, shapes = _gn_routes()
+    for call, shape in zip(calls, shapes):
+        args = _gn_inputs(shape, torch.bfloat16, dev, 11)
+        assert torch.equal(call(*args), call(*args))
+
+
+@pytest.mark.cuda
+def test_group_norm_kernels_on_two_streams_match_one_stream(dev):
+    """Launches running at once on two streams count their images in
+    counters of their own, so each gives the bits it gives alone."""
+    calls, shapes = _gn_routes()
+    for call, shape in zip(calls, shapes):
+        inputs = [_gn_inputs(shape, torch.bfloat16, dev, seed)
+                  for seed in (12, 13)]
+        want = [call(*a) for a in inputs]
+        streams = [torch.cuda.Stream(dev) for _ in inputs]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        got = [[], []]
+        for _ in range(20):
+            for k, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    got[k].append(call(*inputs[k]))
+        torch.cuda.synchronize()
+        for k in range(2):
+            assert all(torch.equal(t, want[k]) for t in got[k])
+
+
+@pytest.mark.cuda
+def test_group_norm_kernels_replay_from_a_cuda_graph(dev):
+    """A statistics launch captured in a CUDA graph zeroes image counters
+    of its own in the graph; replays give the eager call's bits."""
+    calls, shapes = _gn_routes()
+    for call, shape in zip(calls, shapes):
+        args = _gn_inputs(shape, torch.bfloat16, dev, 14)
+        want = call(*args)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call(*args)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
 
 
 def _resblock_inputs(shape, o, dtype, dev, seed=9):

@@ -100,11 +100,17 @@ def test_param_tree_has_the_jax_keys(setup):
     ((48, 896, 8, 87), False),    # ds4: C > 512
     ((12, 896, 8, 87), False),    # mid
     ((3072, 224, 8, 87), False),  # 512px ds1: T > 1024
+    # the upscale net's ds4: the port takes it, where JAX's VMEM budget
+    # refuses it (25.8 MB against 17 MB, upgpt_tpu fused_transformer.py
+    # 396-407), so the chain runs K1 where JAX runs the plain block
+    ((768, 512, 8, 86), True),
     ((768, 200, 8, 87), False),   # C not a multiple of 32
 ])
 def test_qualifies(args, ok):
     assert tft.fused_transformer_qualifies(*args) is ok
     assert not tft.fused_transformer_qualifies(*args, depth=2)
+    if args == (768, 512, 8, 86):
+        assert not jft.fused_transformer_qualifies(*args)
 
 
 def test_spatial_transformer_follows_reloaded_weights(setup):

@@ -137,6 +137,23 @@ def test_unported_samplers_raise(models):
             GenerationPipeline(tm, num_steps=8, sampler=sampler)
 
 
+def test_pipeline_reports_the_steps_that_run(models):
+    # 30 does not divide 1000: the uniform grid runs 31 steps, and both
+    # pipelines report the table's length, not the requested count
+    from upgpt_tpu.diffusion.schedule import make_ddim_schedule
+
+    jm, _, tm, batch = models
+    want = make_ddim_schedule(jm.schedule, 30, eta=1.0).num_steps
+    assert want == JaxPipeline(jm, num_steps=30).num_steps == 31
+    pipe = GenerationPipeline(tm, num_steps=30, eta=1.0, decode=False)
+    assert pipe.num_steps == want
+    h, w = jm.config.latent_size
+    noise = torch.zeros(pipe.num_steps, B, h, w, 4)
+    out = pipe.generate(_torch_batch(batch), x_T=torch.zeros(B, h, w, 4),
+                        noise=noise)
+    assert out.shape == (B, h, w, 4)
+
+
 def test_generator_draws_are_reproducible(models):
     _, _, tm, batch = models
     pipe = GenerationPipeline(tm, num_steps=STEPS, eta=1.0, decode=False)

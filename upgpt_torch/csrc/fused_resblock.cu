@@ -9,8 +9,9 @@
 // O, 14.5 GFLOP for (4, 32, 24, 512) -> 512, against 6.4 MB of activations
 // and 4.7 MB of weights). A 32x24x672 bf16 image alone is 1 MB, against 227
 // KB of shared memory per block, so nothing is held per image. Two steps:
-// (1) the GroupNorm statistics of csrc/gn_stats.cu, written as per-image,
-//     per-channel affine coefficients a = rstd * gamma, b = beta - mean * a;
+// (1) the GroupNorm statistics of csrc/gn_stats.cu (one launch, finalized
+//     by each image's last block), written as per-image, per-channel
+//     affine coefficients a = rstd * gamma, b = beta - mean * a;
 // (2) an implicit GEMM on the pipelined wgmma mainloop of gemm_sm90.cuh,
 //     with M = B*H*W pixels, N = O and K = 9*C. An M-tile is `rows` whole
 //     image rows (or, for images wider than the tile, a segment of one
@@ -303,13 +304,15 @@ cudaError_t conv(Conv a, const int* plan, const void* w, float* ws,
 // x: contiguous NHWC (N, H, W, C), bf16 (is_bf16 = 1) or float32, C a
 // multiple of 8; gamma, beta: (C) float32; w: (9, O, C) bf16, tap-major
 // (tap = 3 * ky + kx); cbias: (O) float32; out: (N, H, W, O) in x's type;
-// ws: (N, chunks, 2, C) and coef: (N, 2, C) float32 scratch; plan: 7 host
-// ints (gemm_plan.ConvPlan.as_ints); split_ws: ws_floats float32 and
-// counters: n_counters int32, zero, where the plan splits the chunks.
+// ws: (N, chunks, 2, C) and coef: (N, 2, C) float32 scratch; stats_counters:
+// N int32, zero, reset by the statistics launch; plan: 7 host ints
+// (gemm_plan.ConvPlan.as_ints); split_ws: ws_floats float32 and counters:
+// n_counters int32, zero, where the plan splits the chunks.
 extern "C" int upgpt_fused_resblock(const void* x, const void* gamma,
                                     const void* beta, const void* w,
                                     const void* cbias, void* out, void* ws,
-                                    void* coef, const int* plan,
+                                    void* coef, void* stats_counters,
+                                    const int* plan,
                                     void* split_ws, long long ws_floats,
                                     void* counters, int n_counters, int N,
                                     int H, int W, int C, int O, int G,
@@ -322,8 +325,8 @@ extern "C" int upgpt_fused_resblock(const void* x, const void* gamma,
   float* cf = static_cast<float*>(coef);
   cudaError_t e = upgpt::group_stats(
       x, static_cast<float*>(ws), cf, static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), N, H * W, C, G, chunks, eps, is_bf16,
-      st);
+      static_cast<const float*>(beta), static_cast<int*>(stats_counters), N,
+      H * W, C, G, chunks, eps, is_bf16, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   Conv a = {};
   a.x = x;

@@ -55,7 +55,10 @@ class GenerationPipeline:
         self.output_uint8 = output_uint8
         self.sampler = sampler
         self.ddim = make_ddim_schedule(model.schedule, num_steps, eta=eta)
-        self.num_steps = num_steps
+        # the table's length, not the requested count: a uniform grid whose
+        # count does not divide the training steps runs one step more, and
+        # callers size per-step inputs (`noise`) by what will run
+        self.num_steps = self.ddim.num_steps
 
     def _cond(self, context, concat):
         cond = {"c_crossattn": context, "c_concat": concat}

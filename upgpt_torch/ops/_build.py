@@ -49,16 +49,21 @@ SIGNATURES = {
     "upgpt_flash_backward_dq": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # q, k, v, dout, lse, di, dk, dv, B, H, T, D, is_bf16, stream
     "upgpt_flash_backward_dkv": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-    # x, scale, shift, out, N, HW, C, G, eps, with_silu, is_bf16, stream
-    "upgpt_fused_group_norm": [P, P, P, P, I, I, I, I, F, I, I, P],
-    # x, ws, out, N, HW, C, G, chunks, eps, is_bf16, stream
-    "upgpt_gn_stats": [P, P, P, I, I, I, I, I, F, I, P],
-    # x, stats, scale, shift, out, N, HW, C, with_silu, is_bf16, stream
-    "upgpt_gn_apply": [P, P, P, P, P, I, I, I, I, I, P],
-    # x, gamma, beta, w, conv bias, out, ws, coef, plan, split ws, its
-    # floats, tile counters, their count, N, H, W, C, O, G, chunks, eps,
+    # x, scale, shift, out, N, HW, C, G, cluster, rows, threads, eps,
+    # with_silu, is_bf16, stream
+    "upgpt_fused_group_norm": [P, P, P, P, I, I, I, I, I, I, I, F, I, I, P],
+    # x, ws, out, gamma, beta, image counters, N, HW, C, G, chunks, eps,
     # is_bf16, stream
-    "upgpt_fused_resblock": ([P] * 10 + [L, P, I] + [I] * 7 + [F, I, P]),
+    "upgpt_gn_stats": [P] * 6 + [I] * 5 + [F, I, P],
+    # x, stats, scale, shift, out, N, HW, C, chunks, with_silu, is_bf16,
+    # stream
+    "upgpt_gn_apply": [P] * 5 + [I] * 6 + [P],
+    # blocks, cluster (0: a plain launch), stream
+    "upgpt_empty": [I, I, P],
+    # x, gamma, beta, w, conv bias, out, ws, coef, image counters, plan,
+    # split ws, its floats, tile counters, their count, N, H, W, C, O, G,
+    # chunks, eps, is_bf16, stream
+    "upgpt_fused_resblock": ([P] * 11 + [L, P, I] + [I] * 7 + [F, I, P]),
     "upgpt_fused_transformer_block": (
         [P, P]                      # x, out
         + [P, P, P, P]              # gn w/b, proj_in w/b

@@ -6,7 +6,8 @@ Port of `upgpt_tpu.ops.fused_resblock`. The kernel is
 GroupNorm(32) with float32 statistics, SiLU, the activation rounded to bf16,
 and a SAME-padded 3x3 conv against bf16 weights with float32 accumulation
 from the conv bias, stored in x's dtype. On this card it is two launches:
-the GroupNorm statistics of `csrc/gn_stats.cu`, then an implicit GEMM
+the GroupNorm statistics of `csrc/gn_stats.cu` (one launch, each image
+finalized by its last block), then an implicit GEMM
 (M = B*H*W, N = O, K = 9*C) on the pipelined wgmma mainloop of
 `csrc/gemm_sm90.cuh`: a block activates its tile's halo once per 64-channel
 chunk into shared memory and the nine taps read it at shifted rows, with
@@ -40,7 +41,7 @@ import torch.nn.functional as F
 
 from upgpt_torch.ops import _build, gemm_plan
 from upgpt_torch.ops.basic import group_norm, silu
-from upgpt_torch.ops.fused_gn import stats_chunks
+from upgpt_torch.ops.fused_gn import _sm_count, stats_chunks
 
 _VMEM_BUDGET_BYTES = 10 * 1024 * 1024
 
@@ -124,22 +125,26 @@ def _launch(x, gn_scale, gn_bias, packed, conv_bias, num_groups, eps):
     if gn_scale.shape != (c,) or gn_bias.shape != (c,) or (
             conv_bias.shape != (o,)):
         raise ValueError("fused ResBlock half-step: norm and bias widths")
-    chunks = stats_chunks(x)
+    chunks = stats_chunks(x.shape, x.element_size(), _sm_count(x.device))
     ws = torch.empty((n, chunks, 2, c), device=x.device, dtype=torch.float32)
     coef = torch.empty((n, 2, c), device=x.device, dtype=torch.float32)
     out = torch.empty((n, h, w, o), device=x.device, dtype=x.dtype)
     plan, plan_ints = gemm_plan.cached_conv_plan((n, h, w, c), o,
                                                  x.element_size())
-    partials, counters = gemm_plan.split_scratch(
-        x.device, plan.workspace_floats, plan.tiles)
+    # one set of counters: the statistics' images first, then the conv's
+    # tiles where its plan splits the chunks
+    split = plan.workspace_floats > 0
+    counters = gemm_plan.stream_counters(x.device,
+                                         n + (plan.tiles if split else 0))
+    partials = (torch.empty(plan.workspace_floats, dtype=torch.float32,
+                            device=x.device) if split else None)
     code = _build.library().upgpt_fused_resblock(
         x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
         packed.data_ptr(), conv_bias.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), coef.data_ptr(), plan_ints,
-        None if partials is None else partials.data_ptr(),
-        plan.workspace_floats,
-        None if counters is None else counters.data_ptr(),
-        0 if counters is None else counters.numel(), n, h, w, c, o,
+        ws.data_ptr(), coef.data_ptr(), counters.data_ptr(), plan_ints,
+        partials.data_ptr() if split else None, plan.workspace_floats,
+        counters.data_ptr() + 4 * n if split else None,
+        counters.numel() - n if split else 0, n, h, w, c, o,
         num_groups, chunks, eps, int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "fused_gn_silu_conv")

@@ -154,7 +154,7 @@ def transformer_block_reference(
 # ---------------------------------------------------------------- kernel
 
 _MAX_NORM_WIDTH = 512  # csrc: norm prologues hold a (BM, C) panel
-_MAX_TOKENS = 1024     # keeps the attention score tile at <= 64 KB a block
+_MAX_TOKENS = 1024     # a dispatch rule, not a kernel limit (see the gate)
 
 # the tree's leaves in the order the autograd.Function takes them
 _LEAVES = (
@@ -206,13 +206,17 @@ def fused_transformer_qualifies(t: int, c: int, heads: int, tk: int,
     """Whether the CUDA kernel takes a block of this shape.
 
     Re-derived for Hopper's shared memory: the GroupNorm/LayerNorm
-    prologues hold a block's whole (BM, C) panel (C <= 512), and the
-    attention pass keeps a (16 x T) float32 score tile per block
-    (T <= 1024 keeps it at 64 KB, two blocks per SM). ds1 (768, 224) and
-    ds2 (192, 448) of the 256px nets qualify; the 896-channel ds4 and mid
-    levels do not. The gate is about shape alone, as the JAX one is, and
-    holds for both variants: the context projection is one more product,
-    whose width the kernel does not stage.
+    prologues hold a block's whole (BM, C) panel (C <= 512). The
+    attention passes run the tiled flash routine of
+    csrc/flash_attention.cu, which takes any T; T <= 1024 stays as a
+    dispatch rule, so the 512px nets' T = 3072 blocks keep the twin with
+    the flash kernel for their self-attention. ds1 (768, 224) and ds2
+    (192, 448) of the 256px nets qualify, and so does the upscale net's
+    ds4 (768, 512), which JAX's VMEM budget refuses (25.8 MB against
+    17 MB); the 896-channel ds4 and mid levels do not. The gate is about
+    shape alone, as the JAX one is, and holds for both variants: the
+    context projection is one more product, whose width the kernel does
+    not stage.
     """
     if depth != 1 or tk < 1:
         return False

@@ -470,25 +470,32 @@ def int_array(values) -> ctypes.Array:
 _counters = {}
 
 
+def stream_counters(device: torch.device, count: int) -> torch.Tensor:
+    """At least `count` int32 counters, zero, for kernels whose last block
+    to count itself in finishes the work and resets its counter before it
+    exits (split K here, the GroupNorm statistics' images in
+    `fused_gn._stats_launch`). Launches in order on one stream can share
+    them: they are zeroed once per (device, stream) and kept. A launch
+    captured into a CUDA graph gets counters of its own, zeroed in the
+    graph, since a replay may run beside any stream."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(count, dtype=torch.int32, device=device)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < count:
+        cnt = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
+        _counters[key] = cnt
+    return cnt
+
+
 def split_scratch(device: torch.device, floats: int, tiles: int):
     """(partials, counters) for a launch whose plan splits K: a fresh
-    float32 workspace of `floats` and int32 tile counters. Every kernel
-    that counts a tile in resets its counter before it exits, so launches
-    in order on one stream can share counters: they are zeroed once per
-    (device, stream) and kept. A launch captured into a CUDA graph gets
-    counters of its own, zeroed in the graph, since a replay may run beside
-    any stream. (None, None) without a split."""
+    float32 workspace of `floats` and `stream_counters` for its tiles.
+    (None, None) without a split."""
     if floats == 0:
         return None, None
     partials = torch.empty(floats, dtype=torch.float32, device=device)
-    if torch.cuda.is_current_stream_capturing():
-        return partials, torch.zeros(tiles, dtype=torch.int32, device=device)
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    cnt = _counters.get(key)
-    if cnt is None or cnt.numel() < tiles:
-        cnt = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
-        _counters[key] = cnt
-    return partials, cnt
+    return partials, stream_counters(device, tiles)
 
 
 @functools.lru_cache(maxsize=256)
