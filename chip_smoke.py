@@ -43,7 +43,19 @@ CUDA toolkit. It
    (4, 512, 384, 3): one warm-up and two timed runs, counting kernel
    launches against the counts the two models' structure gives, and the
    half-step kernel's launches by (shape, O);
-6. prints a JSON line of per-kernel results, the card's name and power
+6. UniPC: on the sampling phase's weights, checks the kernel path against
+   the plain path for UniPC-8 and DPM++(2M)-8 on the karras grid at batch
+   2 (latents, and UniPC's decoded image), then runs UniPC-8-karras, eta
+   0, at batch 64 to uint8 (64, 256, 192, 3), `bench.py`'s second row: one
+   warm-up and three timed runs, counting launches (K1 ten a U-Net eval,
+   one flash forward for the decode, nothing else);
+7. micro_block: the self-attention leg's two kernels (full-width K8,
+   per-head K9) against their twins at (32, 768, 224, 8 heads) and at a
+   ragged T of 700, timed beside `F.multi_head_attention_forward` (one call
+   of the same function), each twice bit for bit and on two streams at
+   once; then `upgpt_torch.benchmarks.micro_block.main` at its defaults,
+   counting its launches;
+8. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
 On every path bf16 attention must run the tensor-core flash kernels: the
@@ -103,6 +115,11 @@ TRAIN_UPDATE_REL_L2 = 0.5
 CHAIN_EPS_REL_L2 = 5e-2
 CHAIN_IMAGE_REL_L2 = 5e-2
 BATCH, STEPS, TIMED_RUNS = 8, 50, 3
+# bench.py's second row: UniPC-8 on the karras grid, eta 0, batch 64
+UNIPC_BATCH, UNIPC_STEPS = 64, 8
+# the self-attention leg at micro_block's geometry, and a ragged T
+SELFATTN_SHAPES = [((32, 768, 224, 8), "micro_block"),
+                   ((32, 700, 224, 8), "none")]
 TRAIN_BATCH, TRAIN_STEPS, LEARNING_RATE = 12, 5, 2e-6
 CHAIN_BATCH, CHAIN_TIMED_RUNS = 4, 2
 # K5's and K6's launches by ((N, H, W, C), kernel) per train step and per
@@ -133,6 +150,10 @@ UP_CONTEXT_TOKENS = 86  # the upscale stage has no pose token
 # NVIDIA H100 SXM peaks (data sheet, dense): bf16 tensor cores, float32
 # outside them, device memory
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# exponentials a second on the special-function units: 16 a clock per SM
+# (NVIDIA's arithmetic-instruction throughput table for compute
+# capability 9.0), 132 SMs, the 1,980 MHz boost clock
+PEAK_EXP = 16 * 132 * 1.98e9
 
 
 def _card_line() -> str:
@@ -157,33 +178,18 @@ def _time_ms(fn, iters: int = 20) -> float:
 
 def _graph_ms(fn, iters: int = 20):
     """Device time of one call: `iters` calls captured in a CUDA graph and
-    replayed, so the host's per-call cost (Python, argument checks, the
-    launch itself) drops out of the figure that `_time_ms` measures with
-    it. None, with the reason printed, where a call cannot be captured."""
+    replayed (`micro_block.graph_ms`), so the host's per-call cost
+    (Python, argument checks, the launch itself) drops out of the figure
+    that `_time_ms` measures with it. None, with the reason printed, where
+    a call cannot be captured."""
+    from upgpt_torch.benchmarks.micro_block import graph_ms
+
     try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
+        return graph_ms(fn, iters)
     except RuntimeError as err:
         print(f"  (not captured in a CUDA graph: {err})", flush=True)
         torch.cuda.synchronize()
         return None
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (5 * iters)
 
 
 def _random_block(c: int, ctx_dim: int, g: torch.Generator) -> dict:
@@ -435,7 +441,8 @@ def groupnorm_checks(dev, by_path: dict, k7_shapes) -> dict:
     at K7's chain shapes. All bf16 with SiLU, eps 1e-5 (K5) and 1e-6 (K6,
     the VAE's). Then each kernel twice, bit for bit, and on two streams at
     once against one. The library yardstick is `F.group_norm` + `F.silu`
-    on the channels-last view."""
+    on the channels-last view, and for the statistics alone one
+    `torch.var_mean` over the grouped (N, H*W, G, C/G) view."""
     from upgpt_torch.ops import fused_gn as fg
 
     g = torch.Generator(device=dev).manual_seed(50)
@@ -455,6 +462,13 @@ def groupnorm_checks(dev, by_path: dict, k7_shapes) -> dict:
         ls, lb = scale.bfloat16(), bias.bfloat16()
         return lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), 32, ls, lb,
                                            eps))
+
+    def stats_library(x):
+        # the statistics alone: one var_mean over the grouped view; the
+        # kernels' rsqrt (and K7's affine) are O(C) more
+        n, c = x.shape[0], x.shape[-1]
+        grouped = x.view(n, -1, 32, c // 32)
+        return lambda: torch.var_mean(grouped, dim=(1, 3), correction=0)
 
     out = {"fused_group_norm": [], "tiled_group_norm": [], "gn_stats_k7": [],
            "latency_floor_ms": floor, "cluster_floor_ms": cluster_floor}
@@ -490,7 +504,7 @@ def groupnorm_checks(dev, by_path: dict, k7_shapes) -> dict:
                         lambda: fg._reference_gn_stats(x, 32, 1e-6),
                         (4 * math.prod(shape),
                          2 * math.prod(shape) + 4 * 2 * shape[0] * shape[-1],
-                         PEAK_F32)),
+                         PEAK_F32), stats_library(x)),
                     "apply": _compare(
                         "gn_apply", shape, path,
                         lambda: fg._apply_launch(x, stats, scale, bias, True),
@@ -500,7 +514,8 @@ def groupnorm_checks(dev, by_path: dict, k7_shapes) -> dict:
                          PEAK_F32))}
                 for part, res in parts.items():
                     for key in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                "rel_err"):
+                                "rel_err", "library_ms",
+                                "library_device_ms"):
                         row[f"{part}_{key}"] = res[key]
             row["launches_per_run"] = runs
             out[kind].append(row)
@@ -519,7 +534,7 @@ def groupnorm_checks(dev, by_path: dict, k7_shapes) -> dict:
             lambda: fg._stats_launch(x, 32, 1e-5, scale, bias), coef_twin,
             (4 * math.prod(shape),
              2 * math.prod(shape) + 4 * 2 * shape[0] * shape[-1]
-             + 2 * 4 * shape[-1], PEAK_F32)))
+             + 2 * 4 * shape[-1], PEAK_F32), stats_library(x)))
     _repeat_checks(fg, inputs)
     torch.cuda.empty_cache()
     return out
@@ -684,6 +699,7 @@ def _counters():
     from upgpt_torch.ops import fused_gn as fg
     from upgpt_torch.ops import fused_resblock as frb
     from upgpt_torch.ops import fused_transformer as ft
+    from upgpt_torch.ops import selfattn_leg as sl
 
     return {"fused_transformer_block": ft.fused_transformer_block,
             "flash_attention": fa.flash_attention,
@@ -691,7 +707,9 @@ def _counters():
             "flash_backward_dkv": fa.flash_backward_dkv,
             "fused_group_norm": fg.fused_group_norm,
             "tiled_group_norm": fg.tiled_group_norm,
-            "fused_resblock": frb.fused_gn_silu_conv}
+            "fused_resblock": frb.fused_gn_silu_conv,
+            "selfattn_fullwidth": sl.selfattn_fullwidth,
+            "selfattn_perhead": sl.selfattn_perhead}
 
 
 def _routes():
@@ -723,6 +741,8 @@ def _routes():
 # or of the half-step kernel's float32 one
 _NO_FMA = {"flash_attention_fma": 0, "flash_backward_dq_fma": 0,
            "flash_backward_dkv_fma": 0, "fused_resblock_fp32": 0}
+# the self-attention leg's kernels run only in the micro-benchmark
+_NO_SELFATTN = {"selfattn_fullwidth": 0, "selfattn_perhead": 0}
 
 
 def _reset_counts() -> None:
@@ -840,7 +860,7 @@ def slice_run(dev, card: str) -> dict:
                 "fused_group_norm": 0, "tiled_group_norm": 0,
                 "fused_resblock": 0, "flash_reference_backwards": 0,
                 "fused_group_norm_plain_routes": 0,
-                "fused_resblock_plain_routes": 0, **_NO_FMA}
+                "fused_resblock_plain_routes": 0, **_NO_FMA, **_NO_SELFATTN}
     if any(c != expected for c in counts):
         raise RuntimeError(f"sampling launch counts {counts}, expected "
                            f"{expected} per run")
@@ -848,8 +868,196 @@ def slice_run(dev, card: str) -> dict:
     print(f"DDIM-{STEPS} eta 1 batch {BATCH} -> uint8 {tuple(out.shape)}: "
           f"{' '.join(f'{t:.4f}' for t in times)} s/batch, best {sec:.4f} "
           f"s/batch = {BATCH / sec:.3f} img/s on {card}", flush=True)
-    return {"launches": counts[0], "s_per_batch": times,
-            "img_per_s": BATCH / sec, **e2e}
+    return model, {"launches": counts[0], "s_per_batch": times,
+                   "img_per_s": BATCH / sec, **e2e}
+
+
+def unipc_run(dev, card: str, model) -> dict:
+    """UniPC-8 and DPM++(2M)-8 on the karras grid, on the sampling phase's
+    weights: kernel path against plain path at batch 2, then UniPC-8-karras
+    at batch 64 to uint8, the best of three runs after a warm-up."""
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    plain = build_latent_diffusion(
+        "interp_256", dtype="bfloat16", device=dev,
+        use_flash_attention=False, use_fused_transformer=False)
+    plain.load_state_dict(model.state_dict())
+    h, w = model.config.latent_size
+    small = _batch(2, h, w, dev, seed=60)
+    x_t = torch.randn(2, h, w, 4, generator=torch.Generator(
+        device=dev).manual_seed(61), device=dev)
+    e2e = {}
+    with torch.inference_mode():
+        for sampler, tag in (("unipc", "unipc"), ("dpm++", "dpmpp")):
+            lat, img = {}, {}
+            for path, m in (("kernel", model), ("plain", plain)):
+                pipe = GenerationPipeline(
+                    m, num_steps=UNIPC_STEPS, eta=0.0, sampler=sampler,
+                    schedule_method="karras", decode=False)
+                lat[path] = pipe.generate(small, x_T=x_t)
+                if sampler == "unipc":
+                    img[path] = m.decode_first_stage(lat[path])
+            for val in list(lat.values()) + list(img.values()):
+                if not torch.isfinite(val).all():
+                    raise RuntimeError(f"{sampler}: non-finite output")
+            e2e[f"{tag}_latent_rel_l2"] = _rel_l2(lat["kernel"], lat["plain"])
+            if img:
+                e2e[f"{tag}_image_rel_l2"] = _rel_l2(img["kernel"],
+                                                     img["plain"])
+    print(f"UniPC-{UNIPC_STEPS} / DPM++-{UNIPC_STEPS} karras end to end "
+          f"(batch 2): {', '.join(f'{k} {v:.3e}' for k, v in e2e.items())}",
+          flush=True)
+    if (max(v for k, v in e2e.items() if "latent" in k) > LATENT_REL_L2
+            or e2e["unipc_image_rel_l2"] > IMAGE_REL_L2):
+        raise RuntimeError(f"UniPC/DPM++ kernel path disagrees with plain "
+                           f"path: {e2e}")
+    del plain
+    torch.cuda.empty_cache()
+
+    # --- bench.py's second row: UniPC-8-karras, eta 0, batch 64, uint8 ---
+    pipe = GenerationPipeline(model, num_steps=UNIPC_STEPS, eta=0.0,
+                              sampler="unipc", schedule_method="karras",
+                              output_uint8=True)
+    batch = _batch(UNIPC_BATCH, h, w, dev, seed=62)
+    t0 = time.perf_counter()
+    pipe.generate(batch, torch.Generator(device=dev).manual_seed(63))
+    torch.cuda.synchronize()
+    print(f"UniPC warm-up run: {time.perf_counter() - t0:.3f} s", flush=True)
+    times, counts = [], []
+    for i in range(TIMED_RUNS):
+        gen = torch.Generator(device=dev).manual_seed(64 + i)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = pipe.generate(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(_read_counts())
+        if (tuple(out.shape) != (UNIPC_BATCH, 256, 192, 3)
+                or out.dtype != torch.uint8):
+            raise RuntimeError(f"UniPC output {tuple(out.shape)} {out.dtype}")
+        if out.min().item() == out.max().item():
+            raise RuntimeError("UniPC output image is constant")
+    # ten K1 launches a U-Net eval, one flash forward for the decode
+    expected = {k: 0 for k in counts[0]}
+    expected.update(fused_transformer_block=10 * pipe.num_steps,
+                    flash_attention=1)
+    if any(c != expected for c in counts):
+        raise RuntimeError(f"UniPC launch counts {counts}, expected "
+                           f"{expected} per run")
+    sec = min(times)
+    print(f"UniPC-{pipe.num_steps}-karras eta 0 batch {UNIPC_BATCH} -> uint8 "
+          f"{tuple(out.shape)}: {' '.join(f'{t:.4f}' for t in times)} "
+          f"s/batch, best {sec:.4f} s/batch = {UNIPC_BATCH / sec:.3f} img/s "
+          f"on {card}", flush=True)
+    return {"launches": counts[0], "num_steps": pipe.num_steps,
+            "s_per_batch": times, "img_per_s": UNIPC_BATCH / sec, **e2e}
+
+
+def selfattn_checks(dev) -> dict:
+    """K8 and K9 against their twins at micro_block's geometry and at a
+    ragged T, timed beside `F.multi_head_attention_forward` (the three
+    (C, C) weights transposed and stacked as `in_proj_weight`, `wo`
+    transposed with `bo` as the out projection): one PyTorch call of the
+    same function. Bound: the four products and QK^T / PV on the tensor
+    cores against x, the weights and the output once; `exp_ms` is the
+    softmax's B H T^2 exponentials at the SFU rate. Then each kernel twice
+    bit for bit and on two streams at once."""
+    from upgpt_torch.benchmarks.micro_block import rel_err
+    from upgpt_torch.ops import flash_attention as fa
+    from upgpt_torch.ops import selfattn_leg as sl
+
+    g = torch.Generator(device=dev).manual_seed(70)
+    cases = {"selfattn_fullwidth": [], "selfattn_perhead": []}
+    for (b, t, c, heads), path in SELFATTN_SHAPES:
+        x = (0.1 * torch.randn(b, t, c, generator=g, device=dev)).bfloat16()
+        attn1 = {n: {"kernel": (0.03 * torch.randn(
+                     c, c, generator=g, device=dev)).bfloat16().float().cpu()
+                     .numpy()} for n in ("to_q", "to_k", "to_v", "to_out")}
+        attn1["to_out"]["bias"] = (0.03 * torch.randn(
+            c, generator=g, device=dev)).bfloat16().float().cpu().numpy()
+        full, per_head = sl.selfattn_weights(attn1, heads, torch.bfloat16,
+                                             dev)
+        wq, wk, wv, wo, bo = full
+        in_proj = torch.cat([wq.t(), wk.t(), wv.t()]).contiguous()
+        out_w, out_b = wo.t().contiguous(), bo.reshape(-1).bfloat16()
+        xt = x.transpose(0, 1)
+
+        def library():
+            return F.multi_head_attention_forward(
+                xt, xt, xt, c, heads, in_proj, None, None, None, False, 0.0,
+                out_w, out_b, training=False, need_weights=False)[0]
+
+        work = (8 * b * t * c * c + 4 * b * t * t * c,
+                2 * (2 * b * t * c + 4 * c * c) + 4 * c, PEAK_BF16)
+        exp_ms = b * heads * t * t / PEAK_EXP * 1e3
+        # the flash pass alone on contiguous heads, where both kernels'
+        # middle launch spends its time; the rest is the two products
+        qkv = [torch.randn(b, heads, t, c // heads, generator=g,
+                           device=dev).bfloat16() for _ in range(3)]
+        attention_ms = _graph_ms(lambda: fa.flash_attention(*qkv))
+        print(f"  its flash pass alone {(b, heads, t, c // heads)}: "
+              f"{attention_ms:.4f} ms in a CUDA graph", flush=True)
+        with torch.no_grad():
+            for name, kernel, plain in (
+                    ("selfattn_fullwidth",
+                     lambda: sl.selfattn_fullwidth(x, *full, heads),
+                     lambda: sl.selfattn_fullwidth_reference(x, *full, heads)),
+                    ("selfattn_perhead",
+                     lambda: sl.selfattn_perhead(x, *per_head),
+                     lambda: sl.selfattn_perhead_reference(x, *per_head))):
+                row = _compare(name, (b, t, c, heads), path, kernel, plain,
+                               work, library)
+                row["exp_ms"] = exp_ms
+                row["attention_device_ms"] = attention_ms
+                want = kernel()
+                streams = [torch.cuda.Stream() for _ in range(2)]
+                got = [kernel()]
+                for st in streams:
+                    st.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(st):
+                        got.append(kernel())
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, want) for a in got):
+                    raise RuntimeError(f"{name} {(b, t, c, heads)}: repeated "
+                                       f"calls differ")
+                row["bit_for_bit"] = True
+                print(f"  {name} {(b, t, c, heads)}: bit for bit over three "
+                      f"calls, two of them on two streams at once; the "
+                      f"softmax's exponentials alone {exp_ms:.4f} ms at the "
+                      f"SFU rate", flush=True)
+                cases[name].append(row)
+            rel = rel_err(sl.selfattn_perhead(x, *per_head),
+                          sl.selfattn_fullwidth(x, *full, heads))
+            print(f"  K9 against K8 {(b, t, c, heads)}: max|d|/max|ref| "
+                  f"{rel:.3e}", flush=True)
+        del x, full, per_head, in_proj, qkv
+        torch.cuda.empty_cache()
+    return cases
+
+
+def micro_block_run() -> dict:
+    """The ported micro-benchmark's entry point at its defaults, on the
+    card, with its launches counted."""
+    from upgpt_torch.benchmarks import micro_block
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    result = micro_block.main(["--iters", "5"])
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    for name in ("selfattn_fullwidth", "selfattn_perhead",
+                 "fused_transformer_block"):
+        if counts[name] == 0:
+            raise RuntimeError(f"micro_block launched no {name}")
+    for name in ("selfattn_fullwidth", "selfattn_perhead",
+                 "fused_full_block"):
+        if result["rel_err"][name] > KERNEL_REL_TOL:
+            raise RuntimeError(f"micro_block: {name} disagrees with its twin "
+                               f"{result['rel_err']}")
+    return {"launches": counts, "ms": result["ms"],
+            "rel_err": result["rel_err"]}
 
 
 def expected_train_counts(model) -> dict:
@@ -899,7 +1107,7 @@ def expected_train_counts(model) -> dict:
             "fused_group_norm": gn, "tiled_group_norm": 0,
             "fused_resblock": 0, "flash_reference_backwards": 0,
             "fused_group_norm_plain_routes": len(norms) - gn,
-            "fused_resblock_plain_routes": 0, **_NO_FMA}
+            "fused_resblock_plain_routes": 0, **_NO_FMA, **_NO_SELFATTN}
 
 
 def train_run(dev, card: str) -> dict:
@@ -1094,7 +1302,7 @@ def expected_sampling_counts(model, b: int, tk: int) -> dict:
         vcfg.use_flash_attention and flash_attention_qualifies(
             b, 1, h * w, h * w, c_mid, model.vae.decoder.conv_in.weight.dtype))
     counts.update(flash_backward_dq=0, flash_backward_dkv=0,
-                  flash_reference_backwards=0, **_NO_FMA)
+                  flash_reference_backwards=0, **_NO_FMA, **_NO_SELFATTN)
     return counts
 
 
@@ -1232,14 +1440,18 @@ KERNELS = [
      "upgpt_tpu/ops/fused_gn.py:119"),
     ("fused_resblock", "upgpt_torch/csrc/fused_resblock.cu",
      "upgpt_tpu/ops/fused_resblock.py:134"),
+    ("selfattn_fullwidth", "upgpt_torch/csrc/selfattn_leg.cu",
+     "benchmarks/micro_block.py:48"),
+    ("selfattn_perhead", "upgpt_torch/csrc/selfattn_leg.cu",
+     "benchmarks/micro_block.py:90"),
 ]
 
 
 def kernel_entry(name, source, replaces, cases, by_path) -> dict:
-    """One kernel's line: launches over one sampling run, one train step and
-    one chain run; ms, plain_ms, library_ms and bound_ms summed over the
-    shapes the three paths give it (one call each); max_abs_err over every
-    case."""
+    """One kernel's line: launches over one sampling run, one train step,
+    one chain run, one UniPC run and one micro_block run; ms, plain_ms,
+    library_ms and bound_ms summed over the shapes the paths give it (one
+    call each); max_abs_err over every case."""
     on_path = [c for c in cases if c["path"] != "none"]
     libs = [c["library_ms"] for c in on_path]
     by_bytes = sum(c["bound_ms"] for c in on_path if c["bound_by"] == "bytes")
@@ -1278,6 +1490,9 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
             for path in sorted({c["path"] for c in on_path})}
     if name == "flash_backward_dq":
         entry["library_covers"] = "dq, dk and dv together"
+    if name.startswith("selfattn_"):
+        entry["exp_ms"] = sum(c["exp_ms"] for c in on_path)
+        entry["library_call"] = "F.multi_head_attention_forward"
     return entry
 
 
@@ -1303,8 +1518,12 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     cases = kernel_checks(dev)
+    cases.update(selfattn_checks(dev))
     grad_rel = resblock_gradient_check(dev)
-    sampling = slice_run(dev, card)
+    model, sampling = slice_run(dev, card)
+    torch.cuda.empty_cache()
+    unipc = unipc_run(dev, card, model)
+    del model
     torch.cuda.empty_cache()
     training = train_run(dev, card)
     torch.cuda.empty_cache()
@@ -1318,8 +1537,9 @@ def main() -> None:
     cases["fused_group_norm"] = gn["fused_group_norm"]
     cases["tiled_group_norm"] = gn["tiled_group_norm"]
 
+    micro = micro_block_run()
     runs = {"sampling_run": sampling, "train_step": training,
-            "chain_run": chain}
+            "chain_run": chain, "unipc_run": unipc, "micro_block": micro}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]

@@ -2,6 +2,7 @@
 one NVIDIA GPU.
 
     python3 profile_slice.py [batch ...]          (default: 8 32)
+    python3 profile_slice.py --unipc [batch ...]  (default: 64)
     python3 profile_slice.py --train [batch ...]  (default: 12)
     python3 profile_slice.py --chain [batch ...]  (default: 4)
     python3 profile_slice.py --plans
@@ -13,7 +14,8 @@ Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit. For each batch it builds interp_256 at full width with seeded
 random weights (as chip_smoke.py does): in bf16 for sampling, or with
 float32 masters under bf16 compute and the training kernels on for
-`--train`. `--chain` builds interp_256 and upscale in bf16 with the
+`--train`. `--unipc` samples with UniPC-8 on the karras grid, eta 0, to
+uint8 (`bench.py`'s second row) instead of DDIM-50. `--chain` builds interp_256 and upscale in bf16 with the
 chain's GroupNorm kernel switches on (as chip_smoke.py's chain phase) and
 profiles its two stages one after the other: the 256 stage
 (GenerationPipeline(DDIM-50, eta 1) to a float image), then the upscale
@@ -78,6 +80,7 @@ KINDS = [
     ("attention (csrc, K1 and flash)",
      lambda n: "attention_mma_kernel" in n or "attention_fma_kernel" in n),
     ("K1 GEMMs (csrc)", lambda n: "product_kernel<" in n),
+    ("K8/K9 products (csrc)", lambda n: "proj_kernel<" in n),
     ("K1 GroupNorm stats (csrc)", lambda n: "gn_stats_kernel" in n),
     ("flash backward K4 (csrc)",
      lambda n: any(s in n for s in ("dq_mma_kernel", "dkv_mma_kernel",
@@ -153,20 +156,28 @@ def profile_run(run, label: str, b: int, card: str) -> None:
         print(f"  {us / 1e3:11.3f} {calls[name]:7d}  {name[:110]}")
 
 
-def profile_sampling(model, b: int, dev, card: str) -> None:
+def profile_sampling(model, b: int, dev, card: str,
+                     unipc: bool = False) -> None:
     from upgpt_torch.inference.pipeline import GenerationPipeline
 
     h, w = model.config.latent_size
     batch = chip_smoke._batch(b, h, w, dev, seed=4)
-    pipe = GenerationPipeline(model, num_steps=STEPS, eta=1.0,
-                              output_uint8=True)
+    if unipc:
+        pipe = GenerationPipeline(
+            model, num_steps=chip_smoke.UNIPC_STEPS, eta=0.0, sampler="unipc",
+            schedule_method="karras", output_uint8=True)
+        label = f"UniPC-{pipe.num_steps}-karras eta 0 per batch"
+    else:
+        pipe = GenerationPipeline(model, num_steps=STEPS, eta=1.0,
+                                  output_uint8=True)
+        label = f"DDIM-{STEPS} eta 1 per batch"
 
     def run(seed):
         pipe.generate(batch, torch.Generator(device=dev).manual_seed(seed))
         torch.cuda.synchronize()
 
     run(0)
-    profile_run(run, f"DDIM-{STEPS} eta 1 per batch", b, card)
+    profile_run(run, label, b, card)
 
 
 def profile_train(model, b: int, dev, card: str) -> None:
@@ -521,6 +532,7 @@ def main() -> None:
         return
     train = "--train" in sys.argv
     chain = "--chain" in sys.argv
+    unipc = "--unipc" in sys.argv
     batches = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
     dev = torch.device("cuda", 0)
     card = chip_smoke._card_line()
@@ -537,8 +549,13 @@ def main() -> None:
         model = build_latent_diffusion("interp_256", dtype="bfloat16",
                                        device=dev)
     chip_smoke._redraw(model, seed=1, dev=dev)
-    for b in batches or ([chip_smoke.TRAIN_BATCH] if train else [8, 32]):
-        (profile_train if train else profile_sampling)(model, b, dev, card)
+    if train:
+        for b in batches or [chip_smoke.TRAIN_BATCH]:
+            profile_train(model, b, dev, card)
+        return
+    default = [chip_smoke.UNIPC_BATCH] if unipc else [8, 32]
+    for b in batches or default:
+        profile_sampling(model, b, dev, card, unipc)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ from upgpt_torch.ops import fused_gn as fg  # noqa: E402
 from upgpt_torch.ops import fused_resblock as frb  # noqa: E402
 from upgpt_torch.ops import fused_transformer as ft  # noqa: E402
 from upgpt_torch.ops import gemm_plan as gp  # noqa: E402
+from upgpt_torch.ops import selfattn_leg as sl  # noqa: E402
 
 TK, CTX = 87, 768
 
@@ -751,3 +752,93 @@ def test_tiny_train_step_moves_every_launch_counter(dev):
     assert torch.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0
     assert all(p.dtype == torch.float32 for p in state.params)
     assert any(not torch.equal(a, p) for a, p in zip(start, state.params))
+
+
+def _selfattn_inputs(dev, b, t, c, heads, seed=0):
+    """bf16 tokens and attn1 weights in both layouts (std 1/sqrt(C),
+    a float32 bias)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, c, generator=g).to(dev, torch.bfloat16)
+    leaves = {n: {"kernel": (torch.randn(c, c, generator=g)
+                             / math.sqrt(c)).numpy()}
+              for n in ("to_q", "to_k", "to_v", "to_out")}
+    leaves["to_out"]["bias"] = (0.1 * torch.randn(c, generator=g)).numpy()
+    full, per_head = sl.selfattn_weights(leaves, heads, torch.bfloat16, dev)
+    return x, full, per_head
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,heads", [
+    (4, 768, 224, 8),   # micro_block's ds1 geometry (dh 28)
+    (2, 700, 224, 8),   # ragged T
+    (2, 100, 56, 2),    # dh 28, one N tile
+    (1, 64, 64, 4),     # dh 16
+    (2, 33, 96, 3),     # dh 32, ragged T and N
+])
+def test_selfattn_leg_kernels_match_twins(dev, b, t, c, heads):
+    x, full, per_head = _selfattn_inputs(dev, b, t, c, heads)
+    before = (sl.selfattn_fullwidth.launches, sl.selfattn_perhead.launches)
+    got_fw = sl.selfattn_fullwidth(x, *full, heads)
+    got_ph = sl.selfattn_perhead(x, *per_head)
+    torch.cuda.synchronize()
+    assert (sl.selfattn_fullwidth.launches,
+            sl.selfattn_perhead.launches) == (before[0] + 1, before[1] + 1)
+    assert _rel(got_fw, sl.selfattn_fullwidth_reference(x, *full, heads)) \
+        < 2e-2
+    assert _rel(got_ph, sl.selfattn_perhead_reference(x, *per_head)) < 2e-2
+    assert _rel(got_ph, got_fw) < 2e-2
+
+
+@pytest.mark.cuda
+def test_selfattn_leg_kernels_repeat_bit_for_bit(dev):
+    # no split reduction and no atomics: two calls, and calls on two
+    # streams at once, give the same bits
+    x, full, per_head = _selfattn_inputs(dev, 2, 700, 224, 8, seed=1)
+    calls = [lambda: sl.selfattn_fullwidth(x, *full, 8),
+             lambda: sl.selfattn_perhead(x, *per_head)]
+    for call in calls:
+        want = call()
+        assert torch.equal(call(), want)
+        streams = [torch.cuda.Stream() for _ in range(2)]
+        got = []
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                got.append(call())
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, want) for a in got)
+
+
+@pytest.mark.cuda
+def test_selfattn_leg_kernels_replay_from_a_cuda_graph(dev):
+    x, full, per_head = _selfattn_inputs(dev, 2, 128, 224, 8, seed=2)
+    for call in (lambda: sl.selfattn_fullwidth(x, *full, 8),
+                 lambda: sl.selfattn_perhead(x, *per_head)):
+        want = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_selfattn_leg_kernels_reject_what_they_do_not_take(dev):
+    x, full, per_head = _selfattn_inputs(dev, 1, 64, 64, 4)
+    wq, wk, wv, wo, bo = full
+    with pytest.raises(TypeError):
+        sl.selfattn_fullwidth(x.float(), *full, 4)
+    with pytest.raises(TypeError):  # the bias is float32
+        sl.selfattn_fullwidth(x, wq, wk, wv, wo, bo.bfloat16(), 4)
+    with pytest.raises(ValueError):
+        sl.selfattn_fullwidth(x, wq.t(), wk, wv, wo, bo, 4)
+    with pytest.raises(ValueError):
+        sl.selfattn_fullwidth(x, *full, 3)
+    with pytest.raises(ValueError):  # K9 takes the per-head layouts
+        sl.selfattn_perhead(x, wq, wk, wv, wo, bo)

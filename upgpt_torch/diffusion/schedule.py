@@ -203,6 +203,15 @@ def make_karras_timesteps(
     return np.unique(np.clip(np.round(t_cont), 1, len(sigmas) - 1)).astype(np.int64)
 
 
+def grid_timesteps(schedule: "DiffusionSchedule", num_steps: int,
+                   method: str) -> np.ndarray:
+    """The ascending t-grid of `method`: "uniform"/"quad" (the reference's
+    DDIM grids) or "karras"; every sampler's tables are built over it."""
+    if method == "karras":
+        return make_karras_timesteps(schedule, num_steps)
+    return make_ddim_timesteps(method, num_steps, schedule.num_timesteps)
+
+
 @dataclasses.dataclass(frozen=True)
 class DDIMSchedule:
     """Per-step DDIM tables, ordered by sampling *step* (reverse time).
@@ -244,10 +253,8 @@ def make_ddim_schedule(
             raise ValueError(
                 f"timesteps must lie in [1, {schedule.num_timesteps - 1}], "
                 f"got {ts}")
-    elif method == "karras":
-        ts = make_karras_timesteps(schedule, num_steps)
     else:
-        ts = make_ddim_timesteps(method, num_steps, schedule.num_timesteps)
+        ts = grid_timesteps(schedule, num_steps, method)
     acp = schedule.alphas_cumprod.astype(np.float64)
     alphas = acp[ts]
     alphas_prev = np.asarray([acp[0]] + acp[ts[:-1]].tolist())

@@ -64,6 +64,10 @@ SIGNATURES = {
     # split ws, its floats, tile counters, their count, N, H, W, C, O, G,
     # chunks, eps, is_bf16, stream
     "upgpt_fused_resblock": ([P] * 11 + [L, P, I] + [I] * 7 + [F, I, P]),
+    # x, four weights, bias, Q/K/V and o workspaces, out, B, T, C, heads,
+    # stream
+    "upgpt_selfattn_fullwidth": [P] * 9 + [I] * 4 + [P],
+    "upgpt_selfattn_perhead": [P] * 9 + [I] * 4 + [P],
     "upgpt_fused_transformer_block": (
         [P, P]                      # x, out
         + [P, P, P, P]              # gn w/b, proj_in w/b
