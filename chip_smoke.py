@@ -51,10 +51,11 @@ CUDA toolkit. It
    one flash forward for the decode, nothing else);
 7. micro_block: the self-attention leg's two kernels (full-width K8,
    per-head K9) against their twins at (32, 768, 224, 8 heads) and at a
-   ragged T of 700, timed beside `F.multi_head_attention_forward` (one call
+   ragged T of 700, on unit-scale inputs so the softmax is far from
+   uniform, timed beside `F.multi_head_attention_forward` (one call
    of the same function), each twice bit for bit and on two streams at
    once; then `upgpt_torch.benchmarks.micro_block.main` at its defaults,
-   counting its launches;
+   counting the wrappers' calls (graph replays uncounted);
 8. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
@@ -963,7 +964,14 @@ def selfattn_checks(dev) -> dict:
     same function. Bound: the four products and QK^T / PV on the tensor
     cores against x, the weights and the output once; `exp_ms` is the
     softmax's B H T^2 exponentials at the SFU rate. Then each kernel twice
-    bit for bit and on two streams at once."""
+    bit for bit and on two streams at once.
+
+    The inputs are unit-scale (x N(0, 1), weights N(0, 1/C), bias
+    0.1 N(0, 1)), so the scores q.k/sqrt(dh) are O(1) and a wrong Q/K
+    product, scale, head offset or key mask moves the output far past the
+    tolerance. micro_block's own 0.1 / 0.03 scales make the softmax
+    uniform to 0.2% and leave the bias as most of the output, which is
+    why they serve for timing only."""
     from upgpt_torch.benchmarks.micro_block import rel_err
     from upgpt_torch.ops import flash_attention as fa
     from upgpt_torch.ops import selfattn_leg as sl
@@ -971,11 +979,11 @@ def selfattn_checks(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(70)
     cases = {"selfattn_fullwidth": [], "selfattn_perhead": []}
     for (b, t, c, heads), path in SELFATTN_SHAPES:
-        x = (0.1 * torch.randn(b, t, c, generator=g, device=dev)).bfloat16()
-        attn1 = {n: {"kernel": (0.03 * torch.randn(
-                     c, c, generator=g, device=dev)).bfloat16().float().cpu()
+        x = torch.randn(b, t, c, generator=g, device=dev).bfloat16()
+        attn1 = {n: {"kernel": (torch.randn(c, c, generator=g, device=dev)
+                                / math.sqrt(c)).bfloat16().float().cpu()
                      .numpy()} for n in ("to_q", "to_k", "to_v", "to_out")}
-        attn1["to_out"]["bias"] = (0.03 * torch.randn(
+        attn1["to_out"]["bias"] = (0.1 * torch.randn(
             c, generator=g, device=dev)).bfloat16().float().cpu().numpy()
         full, per_head = sl.selfattn_weights(attn1, heads, torch.bfloat16,
                                              dev)
@@ -997,6 +1005,9 @@ def selfattn_checks(dev) -> dict:
         qkv = [torch.randn(b, heads, t, c // heads, generator=g,
                            device=dev).bfloat16() for _ in range(3)]
         attention_ms = _graph_ms(lambda: fa.flash_attention(*qkv))
+        if attention_ms is None:
+            raise RuntimeError("the flash pass of the self-attention leg "
+                               "could not be captured in a CUDA graph")
         print(f"  its flash pass alone {(b, heads, t, c // heads)}: "
               f"{attention_ms:.4f} ms in a CUDA graph", flush=True)
         with torch.no_grad():
@@ -1051,6 +1062,9 @@ def micro_block_run() -> dict:
                  "fused_transformer_block"):
         if counts[name] == 0:
             raise RuntimeError(f"micro_block launched no {name}")
+    # At micro_block's 0.1 / 0.03 scales the softmax is uniform to 0.2%,
+    # so this holds the entry point's plumbing only; selfattn_checks holds
+    # K8 and K9 to their twins on unit-scale inputs.
     for name in ("selfattn_fullwidth", "selfattn_perhead",
                  "fused_full_block"):
         if result["rel_err"][name] > KERNEL_REL_TOL:
@@ -1449,7 +1463,9 @@ KERNELS = [
 
 def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     """One kernel's line: launches over one sampling run, one train step,
-    one chain run, one UniPC run and one micro_block run; ms, plain_ms,
+    one chain run, one UniPC run and one micro_block run (there the
+    wrapper's calls, the ones captured in its CUDA graphs included; the
+    graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
     call each); max_abs_err over every case."""
     on_path = [c for c in cases if c["path"] != "none"]

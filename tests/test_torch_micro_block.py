@@ -113,16 +113,17 @@ def test_wrappers_run_their_twins_on_cpu_tensors():
 def test_micro_block_main_on_the_cpu(capsys):
     out = micro_block.main(["--device", "cpu", "--batch", "2", "--tokens",
                             "16", "--channels", "64", "--heads", "2",
-                            "--context-tokens", "8", "--dtype", "float32",
-                            "--iters", "1"])
+                            "--context-tokens", "8", "--iters", "1"])
     lines = capsys.readouterr().out.splitlines()
     for name in ("fused_full_block", "selfattn_perhead",
                  "selfattn_fullwidth", "torch_twin"):
         assert sum(ln.startswith(f"{name}: ") and "ms/op" in ln
                    for ln in lines) == 1, name
-    # on CPU tensors every wrapper is its twin; the layouts agree
+    # on CPU tensors every wrapper is its twin; the layouts agree up to
+    # float32 summation order, so within one bf16 ulp of the largest value
     assert out["rel_err"]["selfattn_fullwidth"] == 0.0
-    assert out["rel_err"]["perhead_vs_fullwidth"] < 1e-5
+    assert out["rel_err"]["selfattn_perhead"] == 0.0
+    assert out["rel_err"]["perhead_vs_fullwidth"] <= 2.0 ** -7
 
 
 def test_micro_block_raises_without_a_card():
