@@ -54,7 +54,9 @@ CUDA toolkit. It
    ragged T of 700, on unit-scale inputs so the softmax is far from
    uniform, timed beside `F.multi_head_attention_forward` (one call
    of the same function), each twice bit for bit and on two streams at
-   once; then `upgpt_torch.benchmarks.micro_block.main` at its defaults,
+   once, each of their three launches (Q/K/V, flash, to_out) timed alone
+   beside the parent's device time; then
+   `upgpt_torch.benchmarks.micro_block.main` at its defaults,
    counting the wrappers' calls (graph replays uncounted);
 8. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
@@ -121,6 +123,18 @@ UNIPC_BATCH, UNIPC_STEPS = 64, 8
 # the self-attention leg at micro_block's geometry, and a ragged T
 SELFATTN_SHAPES = [((32, 768, 224, 8), "micro_block"),
                    ((32, 700, 224, 8), "none")]
+# K8's and K9's device ms at those shapes in their first version (mma.sync
+# products around K3's flash routine), as this script measured them on an
+# NVIDIA H100 80GB HBM3 at 700 W
+SELFATTN_PARENT_DEVICE_MS = {
+    ("selfattn_fullwidth", 768): 0.3331, ("selfattn_perhead", 768): 0.3747,
+    ("selfattn_fullwidth", 700): 0.2971, ("selfattn_perhead", 700): 0.3335,
+}
+# the leg's three launches, as the C call's `launches` bits
+SELFATTN_LAUNCHES = (("qkv", 1), ("flash", 2), ("to_out", 4))
+# K9 against K8 (max|d|/max|ref|): the two compute the same products and
+# differ only in where to_out adds the bias, a bf16 step at most
+SELFATTN_K9_K8_TOL = 1e-2
 TRAIN_BATCH, TRAIN_STEPS, LEARNING_RATE = 12, 5, 2e-6
 CHAIN_BATCH, CHAIN_TIMED_RUNS = 4, 2
 # K5's and K6's launches by ((N, H, W, C), kernel) per train step and per
@@ -964,7 +978,10 @@ def selfattn_checks(dev) -> dict:
     same function. Bound: the four products and QK^T / PV on the tensor
     cores against x, the weights and the output once; `exp_ms` is the
     softmax's B H T^2 exponentials at the SFU rate. Then each kernel twice
-    bit for bit and on two streams at once.
+    bit for bit and on two streams at once, and each of its three
+    launches (Q/K/V, flash, to_out) alone in a CUDA graph on the
+    workspaces a full call filled; beside them the parent's device time
+    and, for scale, K3's flash routine alone on the same heads.
 
     The inputs are unit-scale (x N(0, 1), weights N(0, 1/C), bias
     0.1 N(0, 1)), so the scores q.k/sqrt(dh) are O(1) and a wrong Q/K
@@ -1000,28 +1017,52 @@ def selfattn_checks(dev) -> dict:
         work = (8 * b * t * c * c + 4 * b * t * t * c,
                 2 * (2 * b * t * c + 4 * c * c) + 4 * c, PEAK_BF16)
         exp_ms = b * heads * t * t / PEAK_EXP * 1e3
-        # the flash pass alone on contiguous heads, where both kernels'
-        # middle launch spends its time; the rest is the two products
+        # K3's flash routine (csrc/flash_attention.cu) alone on contiguous
+        # heads of the same shape, which the leg's first version launched:
+        # a yardstick for the leg's own flash pass
         qkv = [torch.randn(b, heads, t, c // heads, generator=g,
                            device=dev).bfloat16() for _ in range(3)]
         attention_ms = _graph_ms(lambda: fa.flash_attention(*qkv))
         if attention_ms is None:
-            raise RuntimeError("the flash pass of the self-attention leg "
-                               "could not be captured in a CUDA graph")
-        print(f"  its flash pass alone {(b, heads, t, c // heads)}: "
+            raise RuntimeError("K3's flash routine could not be captured in "
+                               "a CUDA graph")
+        print(f"  K3's flash routine alone {(b, heads, t, c // heads)}: "
               f"{attention_ms:.4f} ms in a CUDA graph", flush=True)
         with torch.no_grad():
-            for name, kernel, plain in (
+            for name, kernel, plain, launches in (
                     ("selfattn_fullwidth",
                      lambda: sl.selfattn_fullwidth(x, *full, heads),
-                     lambda: sl.selfattn_fullwidth_reference(x, *full, heads)),
+                     lambda: sl.selfattn_fullwidth_reference(x, *full, heads),
+                     lambda n, ws: sl.fullwidth_launches(
+                         x, *full, heads, launches=n, workspaces=ws)),
                     ("selfattn_perhead",
                      lambda: sl.selfattn_perhead(x, *per_head),
-                     lambda: sl.selfattn_perhead_reference(x, *per_head))):
+                     lambda: sl.selfattn_perhead_reference(x, *per_head),
+                     lambda n, ws: sl.perhead_launches(
+                         x, *per_head, launches=n, workspaces=ws))):
                 row = _compare(name, (b, t, c, heads), path, kernel, plain,
                                work, library)
                 row["exp_ms"] = exp_ms
                 row["attention_device_ms"] = attention_ms
+                row["parent_device_ms"] = SELFATTN_PARENT_DEVICE_MS[(name, t)]
+                _, ws = launches(7, None)
+                each = {}
+                for part, bit in SELFATTN_LAUNCHES:
+                    each[part] = _graph_ms(
+                        lambda bit=bit: launches(bit, ws))
+                    if each[part] is None:
+                        raise RuntimeError(f"{name}: its {part} launch could "
+                                           f"not be captured in a CUDA graph")
+                row["launch_device_ms"] = each
+                lib_dev = row["library_device_ms"]
+                row["below_library"] = (None if lib_dev is None else
+                                        row["device_ms"] < lib_dev)
+                print(f"  {name} {(b, t, c, heads)} launches alone in a CUDA "
+                      f"graph: " + ", ".join(f"{k} {v:.4f} ms"
+                                             for k, v in each.items())
+                      + f"; the parent's call {row['parent_device_ms']:.4f} "
+                      f"ms; below the library: {row['below_library']}",
+                      flush=True)
                 want = kernel()
                 streams = [torch.cuda.Stream() for _ in range(2)]
                 got = [kernel()]
@@ -1043,7 +1084,12 @@ def selfattn_checks(dev) -> dict:
                           sl.selfattn_fullwidth(x, *full, heads))
             print(f"  K9 against K8 {(b, t, c, heads)}: max|d|/max|ref| "
                   f"{rel:.3e}", flush=True)
-        del x, full, per_head, in_proj, qkv
+            if rel > SELFATTN_K9_K8_TOL:
+                raise RuntimeError(f"K9 and K8 disagree at {(b, t, c, heads)}"
+                                   f": {rel:.3e} > {SELFATTN_K9_K8_TOL}")
+            for name in cases:
+                cases[name][-1]["k9_vs_k8_rel_err"] = rel
+        del x, full, per_head, in_proj, qkv, ws
         torch.cuda.empty_cache()
     return cases
 
@@ -1509,6 +1555,8 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     if name.startswith("selfattn_"):
         entry["exp_ms"] = sum(c["exp_ms"] for c in on_path)
         entry["library_call"] = "F.multi_head_attention_forward"
+        entry["parent_device_ms"] = sum(c["parent_device_ms"]
+                                        for c in on_path)
     return entry
 
 

@@ -79,8 +79,9 @@ KINDS = [
     ("optimizer and EMA (foreach)", lambda n: "multi_tensor" in n),
     ("attention (csrc, K1 and flash)",
      lambda n: "attention_mma_kernel" in n or "attention_fma_kernel" in n),
+    ("K8/K9 products (csrc)", lambda n: "leg_product_kernel<" in n),
+    ("K8/K9 flash pass (csrc)", lambda n: "flash_kernel<" in n),
     ("K1 GEMMs (csrc)", lambda n: "product_kernel<" in n),
-    ("K8/K9 products (csrc)", lambda n: "proj_kernel<" in n),
     ("K1 GroupNorm stats (csrc)", lambda n: "gn_stats_kernel" in n),
     ("flash backward K4 (csrc)",
      lambda n: any(s in n for s in ("dq_mma_kernel", "dkv_mma_kernel",

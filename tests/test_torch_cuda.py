@@ -774,6 +774,9 @@ def _selfattn_inputs(dev, b, t, c, heads, seed=0):
     (2, 100, 56, 2),    # dh 28, one N tile
     (1, 64, 64, 4),     # dh 16
     (2, 33, 96, 3),     # dh 32, ragged T and N
+    (2, 192, 448, 8),   # interp_256's ds2 geometry (dh 56)
+    (2, 48, 896, 8),    # interp_256's ds4 geometry (dh 112)
+    (2, 40, 56, 8),     # odd dh 7: 2-byte copies, pairs across heads
 ])
 def test_selfattn_leg_kernels_match_twins(dev, b, t, c, heads):
     x, full, per_head = _selfattn_inputs(dev, b, t, c, heads)
@@ -842,3 +845,39 @@ def test_selfattn_leg_kernels_reject_what_they_do_not_take(dev):
         sl.selfattn_fullwidth(x, *full, 3)
     with pytest.raises(ValueError):  # K9 takes the per-head layouts
         sl.selfattn_perhead(x, wq, wk, wv, wo, bo)
+
+
+@pytest.mark.cuda
+def test_selfattn_leg_kernels_reject_heads_past_128_lanes(dev):
+    x, full, per_head = _selfattn_inputs(dev, 1, 16, 256, 1)
+    before = (sl.selfattn_fullwidth.launches, sl.selfattn_perhead.launches)
+    with pytest.raises(ValueError, match="128"):
+        sl.selfattn_fullwidth(x, *full, 1)
+    with pytest.raises(ValueError, match="128"):
+        sl.selfattn_perhead(x, *per_head)
+    assert (sl.selfattn_fullwidth.launches,
+            sl.selfattn_perhead.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,heads", [(2, 200, 224, 8), (2, 70, 448, 8),
+                                         (1, 40, 896, 8)])
+def test_selfattn_leg_kernels_write_every_pad_lane(dev, b, t, c, heads):
+    # the workspaces come from torch.empty: a NaN-filled block of their
+    # size, freed just before the call, is what the caching allocator
+    # hands them, so a pad lane the kernels leave unwritten reaches Q K^T
+    # or to_out as NaN
+    x, full, per_head = _selfattn_inputs(dev, b, t, c, heads, seed=3)
+    for call, plain in (
+            (lambda: sl.selfattn_fullwidth(x, *full, heads),
+             lambda: sl.selfattn_fullwidth_reference(x, *full, heads)),
+            (lambda: sl.selfattn_perhead(x, *per_head),
+             lambda: sl.selfattn_perhead_reference(x, *per_head))):
+        poison = [torch.full((n,), float("nan"), dtype=torch.bfloat16,
+                             device=dev)
+                  for n in sl.workspace_elements(b, t, c, heads)]
+        del poison
+        got = call()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert _rel(got, plain()) < 2e-2

@@ -2,7 +2,8 @@
 float32 emulations of the schedules the kernels run, on the CPU.
 
 (a) For every product K1 runs and every K7 shape on the three paths, at
-    their batches: the tiles cover M x N exactly once, the splits cover K
+    their batches, and for K8/K9's two products at every shape
+    `chip_smoke.py` and the CUDA tests give them: the tiles cover M x N exactly once, the splits cover K
     exactly once and in order, shared memory stays within the card's
     227 KB, each plan is the one its rule picks (K1: unsplit, the least
     work on the busiest SM; K7: the least modelled cost), and wherever the
@@ -31,6 +32,7 @@ from upgpt_tpu.ops import fused_resblock as jrb  # noqa: E402
 from upgpt_tpu.ops import fused_transformer as jft  # noqa: E402
 from upgpt_torch.ops import fused_transformer as tft  # noqa: E402
 from upgpt_torch.ops import gemm_plan as gp  # noqa: E402
+from upgpt_torch.ops import selfattn_leg as sl  # noqa: E402
 
 # K1 on the paths: (b, t, c, tk, ctx_dim) at the sampling batch (8), the
 # chain batch (4, both nets) and the training batch (12, context projected)
@@ -49,6 +51,16 @@ K7_SHAPES = [
     ((4, 16, 12, 448), 448), ((4, 16, 12, 672), 448),
     ((4, 16, 12, 896), 448), ((4, 8, 6, 448), 896),
     ((4, 32, 24, 512), 512),
+]
+
+
+# K8/K9 (the self-attention leg): chip_smoke.SELFATTN_SHAPES and the
+# shapes of tests/test_torch_cuda.py, (b, t, c, heads)
+LEG_SHAPES = [
+    (32, 768, 224, 8), (32, 700, 224, 8),
+    (4, 768, 224, 8), (2, 700, 224, 8), (2, 100, 56, 2), (1, 64, 64, 4),
+    (2, 33, 96, 3), (2, 192, 448, 8), (2, 48, 896, 8),
+    (2, 200, 224, 8), (2, 70, 448, 8), (1, 40, 896, 8), (2, 128, 224, 8),
 ]
 
 
@@ -239,6 +251,66 @@ def test_k7_schedule_matches_jax_kernel(shape, o, groups, split):
                        torch.from_numpy(b), groups, 1e-5, plan).numpy()
     np.testing.assert_allclose(got, want, atol=5e-3, rtol=1e-4)
     assert np.abs(got - want).mean() < 1e-4
+
+
+# ------------------------------------------------------- K8/K9 plans
+
+
+def test_leg_shapes_are_chip_smokes():
+    import chip_smoke
+
+    assert all(shape in LEG_SHAPES for shape, _ in chip_smoke.SELFATTN_SHAPES)
+
+
+@pytest.mark.parametrize("shape", LEG_SHAPES)
+def test_leg_plans_fit_and_cover_each_output_once(shape):
+    """Both products of K8/K9: 227 KB with B resident for the whole K, no
+    split (one K loop over every step), every (M, N) tile of the output
+    computed by exactly one block, the grid a whole number of blocks per
+    N tile and at most one wave, and the plan the one its rule picks."""
+    b, t, c, heads = shape
+    dp = sl.padded_head(c // heads)
+    qkv, out = sl.leg_plans(b, t, c, heads)
+    assert (qkv.N, qkv.K, qkv.parts, qkv.per_image) == (c, c, 3, False)
+    assert (out.N, out.K, out.parts, out.per_image) == (c, heads * dp, 1,
+                                                         True)
+    for p in (qkv, out):
+        assert p.smem + gp.STATIC_SMEM <= gp.SMEM_LIMIT
+        assert gp.LEG_MIN_STAGES <= p.stages <= gp.MAX_STAGES
+        assert p.bn in gp.BN_MENU and p.wg in (1, 2)
+        assert p.ksteps * gp.BK >= p.K > (p.ksteps - 1) * gp.BK
+        assert p.grid % p.units == 0 and p.grid <= max(gp.SMS, p.units)
+        assert 1 <= p.blocks_per_unit <= p.m_tiles
+        seen = np.zeros((b * t, p.parts * p.N), np.uint8)
+        for m0, m1, n0, n1 in p.tile_boxes():
+            seen[m0:m1, n0:n1] += 1
+        assert (seen == 1).all()
+        # a tile never crosses a piece (q | k | v) or, per image, an image
+        pieces = [n0 // p.N == (n1 - 1) // p.N
+                  for _, _, n0, n1 in p.tile_boxes()]
+        assert all(pieces)
+        if p.per_image:
+            assert all(m0 // t == (m1 - 1) // t
+                       for m0, m1, _, _ in p.tile_boxes())
+        cands = gp.leg_product_candidates(p.b, p.t, p.N, p.K, p.parts,
+                                          p.per_image)
+        assert p in cands and gp.leg_critical_path(p) == min(
+            gp.leg_critical_path(q) for q in cands)
+    ints = sl.leg_plan_ints(b, t, c, heads)
+    assert ints[:8] == qkv.as_ints() + out.as_ints()
+    assert ints[8:10] == (sl.flash_keys(dp), sl.FLASH_STAGES)
+    assert ints[10] == min(sl.flash_tiles(b, t, heads), gp.SMS)
+    assert (gp.ALIGN_SLACK + sl.flash_smem(dp) + gp.STATIC_SMEM
+            <= gp.SMEM_LIMIT)
+
+
+def test_leg_plans_refuse_what_does_not_fit():
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gp.plan_leg_product(2, 64, 60, 60, 3)
+    # B for the whole K must fit beside the ring: K up to 1,536
+    assert gp.plan_leg_product(2, 64, 1536, 1536, 3).bn == 64
+    with pytest.raises(ValueError, match="fits shared memory"):
+        gp.plan_leg_product(2, 64, 1600, 1600, 3)
 
 
 # ------------------------------------------------------- K1 panel LN

@@ -110,6 +110,102 @@ def test_wrappers_run_their_twins_on_cpu_tensors():
             sl.selfattn_perhead.launches) == before
 
 
+@pytest.mark.parametrize("dh,dp", [(28, 32), (56, 64), (112, 128),
+                                   (16, 32), (1, 32), (32, 32), (33, 64),
+                                   (64, 64), (128, 128)])
+def test_heads_pad_to_32_64_or_128_lanes(dh, dp):
+    assert sl.padded_head(dh) == dp
+
+
+@pytest.mark.parametrize("dh", [0, 129, 256])
+def test_heads_past_128_lanes_are_refused(dh):
+    with pytest.raises(ValueError, match="128"):
+        sl.padded_head(dh)
+
+
+def test_geometry_refuses_before_any_launch():
+    # the CUDA wrappers check the geometry before they allocate or launch
+    with pytest.raises(ValueError, match="128"):
+        sl._geometry("k", torch.empty(1, 16, 256), 1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        sl._geometry("k", torch.empty(1, 16, 60), 2)
+    assert sl._geometry("k", torch.empty(2, 16, 224), 8) == (2, 16, 224, 28)
+
+
+@pytest.mark.parametrize("b,t,c,heads", [(32, 768, 224, 8), (2, 192, 448, 8),
+                                         (2, 48, 896, 8), (2, 33, 96, 3)])
+def test_workspaces_hold_padded_head_major_planes(b, t, c, heads):
+    dp = sl.padded_head(c // heads)
+    assert sl.workspace_elements(b, t, c, heads) == (
+        3 * b * heads * t * dp, b * heads * t * dp)
+
+
+def emulate_leg(x, wq, wk, wv, wo, bo, heads, bias_first):
+    """The kernels' data flow in float32 (csrc/selfattn_leg.cu): the Q/K/V
+    product tile by tile of its plan into the padded head-major workspace
+    (3, B, H, T, Dp), each pad lane written as zero by the tile that holds
+    its head's last lane; softmax(Q K^T / sqrt(dh)) V over the padded
+    heads; to_out tile by tile of its plan as a K loop over the heads'
+    padded segments of o against wo read as (H, dh, C) with zero rows to
+    Dp, the bias first (K9) or last (K8). Returns the output and how often
+    each workspace element was written."""
+    b, t, c = x.shape
+    dh = c // heads
+    dp = sl.padded_head(dh)
+    qkv_plan, out_plan = sl.leg_plans(b, t, c, heads)
+    xm, w = x.reshape(b * t, c), torch.cat([wq, wk, wv], dim=1)
+    ws = torch.full((3, b, heads, t, dp), float("nan"))
+    written = torch.zeros(ws.shape, dtype=torch.int32)
+    for m0, m1, n0, n1 in qkv_plan.tile_boxes():
+        part, lo = n0 // c, n0 % c
+        rows = torch.arange(m0, m1)
+        img, tok = (rows // t)[:, None], (rows % t)[:, None]
+        col = torch.arange(lo, lo + n1 - n0)
+        ws[part, img, col // dh, tok, col % dh] = xm[m0:m1] @ w[:, n0:n1]
+        written[part, img, col // dh, tok, col % dh] += 1
+        for h in range(lo // dh, (lo + n1 - n0 - 1) // dh + 1):
+            if lo <= h * dh + dh - 1 < lo + n1 - n0:
+                ws[part, img, h, tok, dh:] = 0.0
+                written[part, img, h, tok, dh:] += 1
+    q, k, v = ws
+    p = torch.softmax(q @ k.transpose(-1, -2) / np.sqrt(dh), dim=-1)
+    o = p @ v  # (B, H, T, dp), pad lanes zero
+    wo_pad = torch.zeros(heads, dp, c)
+    wo_pad[:, :dh] = wo.reshape(heads, dh, c)
+    out = torch.empty(b * t, c)
+    om = o.permute(0, 2, 1, 3).reshape(b * t, heads, dp)
+    for m0, m1, n0, n1 in out_plan.tile_boxes():
+        acc = (bo.reshape(-1)[n0:n1].expand(m1 - m0, -1).clone() if bias_first
+               else torch.zeros(m1 - m0, n1 - n0))
+        for h in range(heads):
+            acc = acc + om[m0:m1, h] @ wo_pad[h, :, n0:n1]
+        out[m0:m1, n0:n1] = acc if bias_first else acc + bo.reshape(-1)[n0:n1]
+    return out.reshape(b, t, c), written, o
+
+
+@pytest.mark.parametrize("c,heads,t", [(56, 2, 40), (96, 3, 33), (448, 8, 20),
+                                       (32, 4, 24), (56, 8, 12)])
+def test_kernel_layouts_match_jax_self_attention(c, heads, t):
+    """Both kernels' layouts and schedules, emulated in float32, against
+    JAX's CrossAttention as self-attention: every workspace element is
+    written once (pad lanes too), the pad lanes of o stay zero, and the
+    output agrees to 1e-5 (float32 sums in another order). C = 448 cuts
+    its 56-lane heads at the Q/K/V tiles' 64-column edges; 8 heads of
+    C = 56 are 7 lanes wide."""
+    attn1 = _attn1(c, heads, seed=c + t)
+    x = np.random.default_rng(9).normal(size=(2, t, c)).astype(np.float32)
+    want = np.asarray(CrossAttention(heads, c // heads, c).apply(
+        {"params": jax.tree.map(jnp.asarray, attn1)}, jnp.asarray(x)))
+    full, _ = sl.selfattn_weights(attn1, heads, torch.float32)
+    dh = c // heads
+    for bias_first in (False, True):
+        got, written, o = emulate_leg(torch.from_numpy(x), *full, heads,
+                                      bias_first)
+        assert (written == 1).all()
+        assert (o[..., dh:] == 0).all()
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
 def test_micro_block_main_on_the_cpu(capsys):
     out = micro_block.main(["--device", "cpu", "--batch", "2", "--tokens",
                             "16", "--channels", "64", "--heads", "2",

@@ -1,6 +1,10 @@
 // A pipelined tensor-core mainloop for Hopper (sm_90a), shared by the
 // SpatialTransformer block's products (csrc/fused_transformer.cu, K1) and
-// the ResBlock half-step's implicit conv (csrc/fused_resblock.cu, K7).
+// the ResBlock half-step's implicit conv (csrc/fused_resblock.cu, K7). The
+// self-attention leg (csrc/selfattn_leg.cu, K8/K9) uses its pieces:
+// consume_desc (a ring position offset, B's descriptor from the caller,
+// MN-major B through wgmma's transpose bit), Mma<32>, the 64-byte swizzle
+// (desc_swz, swizzle) and 4-D TMA.
 //
 // The shape of one block:
 // - a ring of 3 to 6 stages in dynamic shared memory, each stage a 64-deep
@@ -168,6 +172,17 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 
 // Matrix descriptor of a K-major tile as TMA writes it with the 128-byte
@@ -176,6 +191,26 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
 __device__ __forceinline__ uint64_t desc_b128(const void* p) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// Matrix descriptor of a tile with the 128-byte (span 128) or 64-byte
+// (span 64) swizzle as TMA writes it: K-major tiles (rows of `span` bytes
+// along K) take sbo = 8 rows and ignore lbo; MN-major tiles (read with
+// the transpose bit: rows of `span` bytes along N, one per K index) take
+// sbo = the next 8 K rows and lbo = the next span-wide block of N.
+__device__ __forceinline__ uint64_t desc_swz(const void* p, uint32_t lbo,
+                                             uint32_t sbo, int span) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(span == 128 ? 1 : 2) << 62);
+}
+
+// Byte offset `off` of a row-major tile with rows of `span` (128 or 64)
+// bytes, as the matching TMA swizzle places it: the 16-byte chunk index
+// XOR bits 7.. of the offset (the tile starts 1024-byte aligned).
+__device__ __forceinline__ uint32_t swizzle(uint32_t off, int span) {
+  return off ^ (((off >> 7) & (span == 128 ? 7u : 3u)) << 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -200,7 +235,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // d (64 x N, float32) += a (64 x 16 bf16, registers) * B (16 x N, the
-// descriptor's K-major tile); the accumulator layout: per warp w of the
+// descriptor's K-major tile, or MN-major with rs<1>; scale_d 0 overwrites
+// d instead of adding to it); the accumulator layout: per warp w of the
 // warpgroup, rows 16 w + g and 16 w + g + 8 (g = lane / 4), and for each
 // 8-column group j, d[4 j], d[4 j + 1] at row g, columns 8 j + 2 t, +1
 // (t = lane % 4), d[4 j + 2], d[4 j + 3] at row g + 8. The A fragment is
@@ -209,9 +245,31 @@ template <int N>
 struct Mma;
 
 template <>
+struct Mma<32> {
+  template <int TB = 0>
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <>
 struct Mma<64> {
+  template <int TB = 0>
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -220,7 +278,7 @@ struct Mma<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -229,14 +287,16 @@ struct Mma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
   }
 };
 
 template <>
 struct Mma<128> {
+  template <int TB = 0>
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -249,7 +309,7 @@ struct Mma<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -266,14 +326,16 @@ struct Mma<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
   }
 };
 
 template <>
 struct Mma<224> {
+  template <int TB = 0>
   static __device__ __forceinline__ void rs(float (&d)[112], const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
@@ -292,7 +354,7 @@ struct Mma<224> {
         "%88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, "
         "%104, %105, %106, %107, %108, %109, %110, %111"
-        "}, {%112, %113, %114, %115}, %116, p, 1, 1, 0;\n}\n"
+        "}, {%112, %113, %114, %115}, %116, p, 1, 1, %118;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -321,14 +383,16 @@ struct Mma<224> {
           "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
           "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
   }
 };
 
 template <>
 struct Mma<256> {
+  template <int TB = 0>
   static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4],
-                                             uint64_t b) {
+                                             uint64_t b, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -349,7 +413,7 @@ struct Mma<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -382,7 +446,8 @@ struct Mma<256> {
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
   }
 };
 
@@ -465,6 +530,54 @@ __device__ __forceinline__ void consume(const Ring& r, int steps,
 #pragma unroll
       for (int b = 0; b < NB; ++b)
         Mma<BN>::rs(acc[b], a[kk], desc_b128(stage + b * BN * 128) + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products have retired
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+    if (s > 0) release(s - 1);
+  };
+  uint32_t a0[4][4], a1[4][4];
+  for (int s = 0; s < steps; s += 2) {
+    step(s, a0);
+    if (s + 1 < steps) step(s + 1, a1);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+  if (steps > 0) release(steps - 1);
+}
+
+
+// consume_desc: the same loop over ring positions first, ..., first +
+// steps - 1 (a persistent block's ring runs on from tile to tile), with no
+// before(); B's descriptor comes from bdesc(step, b, kk) and is read with
+// the transpose bit TB (1: MN-major tiles). consume stays a loop of its
+// own: written as a call of this one, it compiled K1's and K7's kernels
+// to other code.
+template <int BN, int NB, int TB, class Frag, class BDesc>
+__device__ __forceinline__ void consume_desc(const Ring& r, int first,
+                                             int steps,
+                                             float (&acc)[NB][BN / 2],
+                                             Frag frag, BDesc bdesc) {
+  const int lane = threadIdx.x % 32;
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&r.empty[(first + s) % r.stages]);
+  };
+  auto step = [&](int s, uint32_t(&a)[4][4]) {
+    const int pos = first + s, st = pos % r.stages;
+    uint8_t* stage = r.stage(st);
+    bar_wait(&r.full[st], (pos / r.stages) & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) frag(s, kk, stage, a[kk]);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        Mma<BN>::template rs<TB>(acc[b], a[kk], bdesc(s, b, kk));
     wgmma_commit();
     wgmma_wait<1>();  // the previous step's products have retired
 #pragma unroll
@@ -607,9 +720,11 @@ inline EncodeTiled encoder() {
 }
 
 // A bf16 tensor of `rank` dims (dims innermost first, rows dense), read in
-// boxes of `box` with the 128-byte swizzle; out-of-bounds elements read 0.
+// boxes of `box` with the 128-byte swizzle (or 64-byte: span 64);
+// out-of-bounds elements read 0.
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rank,
-                            const uint64_t* dims, const uint32_t* box) {
+                            const uint64_t* dims, const uint32_t* box,
+                            int span = 128) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(ptr) % 16)
@@ -628,7 +743,8 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rank,
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                          const_cast<void*>(ptr), gd, gs, bd, es,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -3,8 +3,11 @@ mainloop in `csrc/gemm_sm90.cuh`.
 
 Two kernels run on that mainloop: the SpatialTransformer block's eight (nine
 with a context) matrix products (`csrc/fused_transformer.cu`, K1) and the
-ResBlock half-step's implicit 3x3 conv (`csrc/fused_resblock.cu`, K7). For
-each product a pure function here picks
+ResBlock half-step's implicit 3x3 conv (`csrc/fused_resblock.cu`, K7). The
+self-attention leg's two products (`csrc/selfattn_leg.cu`, K8/K9) use its
+pieces in persistent blocks with B resident, planned by `plan_leg_product`
+at the end of this module. For each K1 and K7 product a pure function here
+picks
 
 - the tile: BM rows (64 per consumer warpgroup, 1 to 3 warpgroups) by BN
   columns (one of `BN_MENU`, at most 256, the widest wgmma; K7 takes 64 or
@@ -288,6 +291,151 @@ def product_workspace(plans) -> Tuple[int, int]:
     live = [p for p in plans if p is not None]
     return (max(p.workspace_floats for p in live),
             max(p.tiles if p.splits > 1 else 0 for p in live))
+
+
+# ------------------------------------------------------- K8/K9 products
+
+
+@dataclass(frozen=True)
+class LegProductPlan:
+    """One product of the self-attention leg (`csrc/selfattn_leg.cu`):
+    Q/K/V, (B T, C) x (C, 3C) in three pieces of N = C with K = C, whose
+    M tiles run over the B T token rows; or to_out, whose K loop runs over
+    the H heads' segments of `dp` padded lanes (K = H dp) and whose M tiles
+    run over each image's T rows (`per_image`). The blocks are persistent:
+    each owns one N tile of one piece (a "unit"), holds that tile of B for
+    the whole K in shared memory (64-wide chunks of N, 64 K rows of 128
+    bytes each) and walks every `grid / units`-th M tile of BM = 64 wg
+    rows, A streaming through a ring. No split."""
+    b: int
+    t: int
+    N: int       # per piece
+    K: int
+    parts: int
+    per_image: bool
+    wg: int
+    bn: int
+    stages: int
+    sms: int = SMS
+
+    @property
+    def bm(self) -> int:
+        return 64 * self.wg
+
+    @property
+    def ksteps(self) -> int:
+        return -(-self.K // BK)
+
+    @property
+    def n_tiles(self) -> int:   # per piece
+        return -(-self.N // self.bn)
+
+    @property
+    def m_tiles(self) -> int:
+        if self.per_image:
+            return self.b * -(-self.t // self.bm)
+        return -(-(self.b * self.t) // self.bm)
+
+    @property
+    def units(self) -> int:
+        return self.parts * self.n_tiles
+
+    @property
+    def blocks_per_unit(self) -> int:
+        return max(1, min(self.m_tiles, self.sms // self.units))
+
+    @property
+    def grid(self) -> int:
+        return self.units * self.blocks_per_unit
+
+    @property
+    def smem(self) -> int:
+        return ALIGN_SLACK + leg_product_smem(self.wg, self.bn, self.ksteps,
+                                              self.stages)
+
+    def as_ints(self) -> Tuple[int, int, int, int]:
+        return (self.wg, self.bn, self.stages, self.grid)
+
+    def m_rows(self) -> List[Tuple[int, int]]:
+        """[m0, m1) rows of the (B T) token matrix of each M tile."""
+        if self.per_image:
+            return [(i * self.t + t0, i * self.t + min(t0 + self.bm, self.t))
+                    for i in range(self.b)
+                    for t0 in range(0, self.t, self.bm)]
+        m = self.b * self.t
+        return [(m0, min(m0 + self.bm, m)) for m0 in range(0, m, self.bm)]
+
+    def block_tiles(self, block: int) -> List[Tuple[int, int, int, int]]:
+        """(m0, m1, n0, n1) of the output tiles block `block` computes, in
+        order: columns of the (parts N)-wide output."""
+        unit = block % self.units
+        p, nt = divmod(unit, self.n_tiles)
+        n0 = p * self.N + nt * self.bn
+        n1 = p * self.N + min((nt + 1) * self.bn, self.N)
+        rows = self.m_rows()
+        return [(*rows[mt], n0, n1) for mt in
+                range(block // self.units, self.m_tiles,
+                      self.blocks_per_unit)]
+
+    def tile_boxes(self) -> List[Tuple[int, int, int, int]]:
+        """Every block's tiles, block by block."""
+        return [box for blk in range(self.grid)
+                for box in self.block_tiles(blk)]
+
+
+def leg_product_smem(wg: int, bn: int, ksteps: int, stages: int) -> int:
+    """Bytes past the alignment slack: B resident (every K step's 64-wide
+    chunks of 8 KB), the ring of `stages` A boxes (64 wg rows of 128
+    bytes), the bf16 epilogue staging tile and the float32 bias of the
+    block's columns."""
+    return (ksteps * -(-bn // 64) * 8192 + wg * stages * 8192
+            + wg * 64 * (bn + 8) * 2 + bn * 4)
+
+
+LEG_MIN_STAGES = 2  # the leg's ring holds A only: two 64-deep steps will do
+
+
+def leg_product_candidates(b: int, t: int, n: int, k: int, parts: int,
+                           per_image: bool,
+                           sms: int = SMS) -> List[LegProductPlan]:
+    """Every plan the kernel takes (1 or 2 consumer warpgroups) that fits."""
+    if min(b, t, n, k) <= 0 or n % 8 or k % 8:
+        raise ValueError(f"leg product ({b}, {t}) x ({k}, {n}): C must be "
+                         f"a positive multiple of 8 (TMA reads rows of "
+                         f"16-byte multiples)")
+    ksteps = -(-k // BK)
+    cands = []
+    for bn in BN_MENU:
+        for wg in (1, 2):
+            if wg > 1 and (t if per_image else b * t) <= 64:
+                continue  # a warpgroup with no row at all
+            fixed = (ksteps * -(-bn // 64) * 8192
+                     + 64 * wg * (bn + 8) * 2 + bn * 4)
+            st = next((s for s in range(PLAN_STAGES, LEG_MIN_STAGES - 1, -1)
+                       if _fits(fixed + wg * s * 8192)), 0)
+            if st:
+                cands.append(LegProductPlan(b, t, n, k, parts, per_image, wg,
+                                            bn, st, sms))
+    if not cands:
+        raise ValueError(f"leg product ({b}, {t}) x ({k}, {n}): no tile of "
+                         f"B for the whole K fits shared memory")
+    return cands
+
+
+def leg_critical_path(p: LegProductPlan) -> int:
+    """The busiest block's work in multiply-adds: its M tiles, each BM x
+    BN x K and a fixed cost (`WAVE_OVERHEAD_MACS`)."""
+    return -(-p.m_tiles // p.blocks_per_unit) * (
+        p.bm * p.bn * p.ksteps * BK + WAVE_OVERHEAD_MACS)
+
+
+def plan_leg_product(b: int, t: int, n: int, k: int, parts: int = 1,
+                     per_image: bool = False,
+                     sms: int = SMS) -> LegProductPlan:
+    """Unsplit, the least critical path, then the fewest units, then the
+    deepest ring."""
+    return min(leg_product_candidates(b, t, n, k, parts, per_image, sms),
+               key=lambda p: (leg_critical_path(p), p.units, -p.stages))
 
 
 # ------------------------------------------------------------------ K7

@@ -22,23 +22,33 @@ product of the concatenated heads plus the float32 bias, the per-head one
 `bo + sum_h o_h @ wo[h]`.
 
 The kernels are `csrc/selfattn_leg.cu`: three launches from one C call
-each (the Q/K/V products, the attention routine of
-`csrc/flash_attention.cu`, the `to_out` product), counted once per call in
-`.launches`. A CPU tensor takes the twin; a CUDA tensor launches the kernel
-or raises. The flash routine normalises o after the value product, where
-the twins normalise p before it, so kernel and twin round differently
-within a few bf16 steps.
+each, counted once per call in `.launches`. The Q/K/V product and `to_out`
+run on the wgmma pieces of `csrc/gemm_sm90.cuh` with plans from
+`gemm_plan.plan_leg_product`; between them a flash pass for small heads
+(`flash_keys`, `FLASH_STAGES`) reads Q, K and V from a workspace the first
+launch writes head-major with each head padded to `padded_head(dh)` lanes
+of zeros, and writes o the same way (`workspace_elements`). A CPU tensor takes the
+twin; a CUDA tensor launches the kernels or raises. The kernels take
+dh <= 128 and C % 8 == 0 (TMA reads x's rows in 16-byte multiples). The
+flash pass normalises o after the value product, where the twins
+normalise p before it, so kernel and twin round differently within a few
+bf16 steps.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Mapping, Tuple
 
 import numpy as np
 import torch
 
-from upgpt_torch.ops import _build
+from upgpt_torch.ops import _build, gemm_plan
+
+HEAD_PADS = (32, 64, 128)  # the flash pass's head widths
+FLASH_BQ = 128             # query rows of a flash tile: 64 a warpgroup
+FLASH_STAGES = 4           # K/V tiles in flight
 
 
 def _split_heads_kernel(w: torch.Tensor, heads: int) -> torch.Tensor:
@@ -123,6 +133,61 @@ def selfattn_perhead_reference(x, wq_h, wk_h, wv_h, wo_h,
 # ---------------------------------------------------------------- kernels
 
 
+def padded_head(dh: int) -> int:
+    """The head width the kernels work in: dh rounded up to 32, 64 or 128
+    lanes, the pad lanes zeros. The TPU kernels hold a whole image and a
+    head's (T, T) scores in VMEM; the flash pass here takes heads of at
+    most 128 lanes."""
+    if dh < 1 or dh > HEAD_PADS[-1]:
+        raise ValueError(f"head width {dh}: the self-attention leg's kernels "
+                         f"take 1 <= dh <= {HEAD_PADS[-1]}")
+    return next(p for p in HEAD_PADS if dh <= p)
+
+
+def workspace_elements(b: int, t: int, c: int, heads: int) -> Tuple[int, int]:
+    """bf16 elements of the two workspaces a call allocates: Q, K and V as
+    (3, B, H, T, Dp), and o as (B, H, T, Dp)."""
+    o = b * heads * t * padded_head(c // heads)
+    return 3 * o, o
+
+
+def flash_keys(dp: int) -> int:
+    """Keys of a K/V tile: 128, or 64 for 128-lane heads, whose S, P, O and
+    Q fragments then fit the consumer's 232 registers."""
+    return 64 if dp == 128 else 128
+
+
+def flash_smem(dp: int, stages: int = FLASH_STAGES) -> int:
+    """Bytes of the flash pass's dynamic shared memory past the alignment
+    slack: the 128-row Q tile and `stages` K/V tiles."""
+    return FLASH_BQ * dp * 2 + stages * 2 * flash_keys(dp) * dp * 2
+
+
+def flash_tiles(b: int, t: int, heads: int) -> int:
+    """(b, h, 128-query) tiles the persistent blocks walk."""
+    return b * heads * -(-t // FLASH_BQ)
+
+
+@functools.lru_cache(maxsize=64)
+def leg_plans(b: int, t: int, c: int, heads: int, sms: int = gemm_plan.SMS):
+    """(Q/K/V plan, to_out plan) of `gemm_plan.plan_leg_product`."""
+    dp = padded_head(c // heads)
+    return (gemm_plan.plan_leg_product(b, t, c, c, 3, sms=sms),
+            gemm_plan.plan_leg_product(b, t, c, heads * dp, 1,
+                                       per_image=True, sms=sms))
+
+
+def leg_plan_ints(b: int, t: int, c: int, heads: int,
+                  sms: int = gemm_plan.SMS) -> Tuple[int, ...]:
+    """The C entry points' eleven plan ints: each product's (wg, bn,
+    stages, grid), then the flash pass's keys per tile, stages and grid
+    (one persistent block an SM, at most one a tile)."""
+    qkv, out = leg_plans(b, t, c, heads, sms)
+    dp = padded_head(c // heads)
+    return (*qkv.as_ints(), *out.as_ints(), flash_keys(dp), FLASH_STAGES,
+            min(flash_tiles(b, t, heads), sms))
+
+
 def _check(name: str, x: torch.Tensor, args) -> None:
     """`args` are (tensor, shape, dtype) triples the kernel takes."""
     for i, (a, shape, dtype) in enumerate(args):
@@ -141,30 +206,50 @@ def _geometry(name: str, x: torch.Tensor, heads: int):
     if x.dim() != 3:
         raise ValueError(f"{name} takes (B, T, C) tokens, got {tuple(x.shape)}")
     b, t, c = x.shape
-    if heads < 1 or c % heads or c // heads > 512:
-        raise ValueError(f"{name}: C={c} does not split into {heads} heads "
-                         f"of at most 512")
+    if heads < 1 or c % heads:
+        raise ValueError(f"{name}: C={c} does not split into {heads} heads")
+    if c % 8:
+        raise ValueError(f"{name}: C={c} is not a multiple of 8 (TMA reads "
+                         f"x's rows in 16-byte multiples)")
+    padded_head(c // heads)  # raises past 128 lanes
+    leg_plans(b, t, c, heads)  # raises where no tile of B fits
     return b, t, c, c // heads
 
 
-def _launch(entry: str, fn, x, weights, bo, heads: int) -> torch.Tensor:
-    """Both kernels' C call: workspaces for Q/K/V and o, then one call that
-    launches the three kernels on the current stream."""
-    b, t, c, dh = _geometry(fn.__name__, x, heads)
+@functools.lru_cache(maxsize=64)
+def _plan_array(b: int, t: int, c: int, heads: int, sms: int):
+    return gemm_plan.int_array(leg_plan_ints(b, t, c, heads, sms))
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(entry: str, fn, x, weights, bo, heads: int, launches: int = 7,
+            workspaces=None):
+    """Both kernels' C call: workspaces for Q/K/V and o (or the caller's),
+    then one call that launches the selected kernels (1 Q/K/V, 2 flash,
+    4 to_out) on the current stream. Returns (out, (qkv, o))."""
+    b, t, c, _ = _geometry(fn.__name__, x, heads)
     bias = bo.reshape(-1)
     _check(fn.__name__, x, [(x, (b, t, c), torch.bfloat16)]
            + [(w, s, torch.bfloat16) for w, s in weights]
            + [(bias, (c,), torch.float32)])
-    qkv = torch.empty(3 * b * t * c, dtype=torch.bfloat16, device=x.device)
-    o = torch.empty(b * t * c, dtype=torch.bfloat16, device=x.device)
+    if workspaces is None:
+        workspaces = tuple(torch.empty(n, dtype=torch.bfloat16,
+                                       device=x.device)
+                           for n in workspace_elements(b, t, c, heads))
+    qkv, o = workspaces
     out = torch.empty_like(x)
     code = getattr(_build.library(), entry)(
         x.data_ptr(), *(w.data_ptr() for w, _ in weights), bias.data_ptr(),
-        qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, t, c, heads,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
+        _plan_array(b, t, c, heads, _sms(x.device)), b, t, c, heads,
+        launches, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, fn.__name__)
     fn.launches += 1
-    return out
+    return out, workspaces
 
 
 def _device(name: str, x: torch.Tensor) -> str:
@@ -180,9 +265,18 @@ def selfattn_fullwidth(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     a float32 (C,) or (1, C) bias -> (B, T, C)."""
     if _device("selfattn_fullwidth", x) == "cpu":
         return selfattn_fullwidth_reference(x, wq, wk, wv, wo, bo, heads)
+    return fullwidth_launches(x, wq, wk, wv, wo, bo, heads)[0]
+
+
+def fullwidth_launches(x, wq, wk, wv, wo, bo, heads: int, launches: int = 7,
+                       workspaces=None):
+    """K8's C call with a choice of launches (1 Q/K/V, 2 flash, 4 to_out)
+    on given workspaces, so that each launch can be timed alone:
+    (out, (qkv, o))."""
     c = x.shape[-1]
     return _launch("upgpt_selfattn_fullwidth", selfattn_fullwidth, x,
-                   [(w, (c, c)) for w in (wq, wk, wv, wo)], bo, heads)
+                   [(w, (c, c)) for w in (wq, wk, wv, wo)], bo, heads,
+                   launches, workspaces)
 
 
 def selfattn_perhead(x: torch.Tensor, wq_h: torch.Tensor, wk_h: torch.Tensor,
@@ -192,11 +286,18 @@ def selfattn_perhead(x: torch.Tensor, wq_h: torch.Tensor, wk_h: torch.Tensor,
     bf16 weights as given, a float32 bias -> (B, T, C)."""
     if _device("selfattn_perhead", x) == "cpu":
         return selfattn_perhead_reference(x, wq_h, wk_h, wv_h, wo_h, bo)
+    return perhead_launches(x, wq_h, wk_h, wv_h, wo_h, bo)[0]
+
+
+def perhead_launches(x, wq_h, wk_h, wv_h, wo_h, bo, launches: int = 7,
+                     workspaces=None):
+    """K9's C call, as `fullwidth_launches`."""
     heads, c = wq_h.shape[0], x.shape[-1]
     dh = c // heads
     return _launch("upgpt_selfattn_perhead", selfattn_perhead, x,
                    [(w, (heads, c, dh)) for w in (wq_h, wk_h, wv_h)]
-                   + [(wo_h, (heads, dh, c))], bo, heads)
+                   + [(wo_h, (heads, dh, c))], bo, heads, launches,
+                   workspaces)
 
 
 selfattn_fullwidth.launches = 0  # C calls since the last reset
