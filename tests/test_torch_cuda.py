@@ -862,22 +862,33 @@ def test_selfattn_leg_kernels_reject_heads_past_128_lanes(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,c,heads", [(2, 200, 224, 8), (2, 70, 448, 8),
                                          (1, 40, 896, 8)])
-def test_selfattn_leg_kernels_write_every_pad_lane(dev, b, t, c, heads):
-    # the workspaces come from torch.empty: a NaN-filled block of their
-    # size, freed just before the call, is what the caching allocator
-    # hands them, so a pad lane the kernels leave unwritten reaches Q K^T
-    # or to_out as NaN
+def test_selfattn_leg_kernels_write_every_pad_lane(dev, monkeypatch, b, t,
+                                                   c, heads):
+    # the workspaces are handed to the kernels filled with NaN, so an
+    # element they leave unwritten, a pad lane above all, reaches Q K^T or
+    # to_out as NaN and stays NaN in the workspace
     x, full, per_head = _selfattn_inputs(dev, b, t, c, heads, seed=3)
+    dh, dp = c // heads, sl.padded_head(c // heads)
+    assert dh < dp
+    given, allocate = [], sl._workspaces
+
+    def poisoned(*args):
+        given.append(tuple(w.fill_(float("nan")) for w in allocate(*args)))
+        return given[-1]
+
+    monkeypatch.setattr(sl, "_workspaces", poisoned)
     for call, plain in (
             (lambda: sl.selfattn_fullwidth(x, *full, heads),
              lambda: sl.selfattn_fullwidth_reference(x, *full, heads)),
             (lambda: sl.selfattn_perhead(x, *per_head),
              lambda: sl.selfattn_perhead_reference(x, *per_head))):
-        poison = [torch.full((n,), float("nan"), dtype=torch.bfloat16,
-                             device=dev)
-                  for n in sl.workspace_elements(b, t, c, heads)]
-        del poison
         got = call()
         torch.cuda.synchronize()
         assert torch.isfinite(got).all()
         assert _rel(got, plain()) < 2e-2
+        qkv, o = given[-1]
+        for ws, planes in ((qkv, 3 * b * heads), (o, b * heads)):
+            ws = ws.reshape(planes, t, dp)
+            assert torch.isfinite(ws).all()
+            assert torch.equal(ws[..., dh:], torch.zeros_like(ws[..., dh:]))
+    assert len(given) == 2

@@ -768,15 +768,13 @@ cudaError_t launch_flash(const FlashArgs& f, const CUtensorMap* maps,
   } while (0)
 
 // Both kernels. plan: the Q/K/V product's (wg, bn, stages, grid), to_out's,
-// and the flash pass's keys per tile, stages and grid. `launches` selects the
-// launches (1 Q/K/V, 2 flash, 4 to_out; 7 for the leg), so each can be
-// timed alone on workspaces an earlier call filled.
+// and the flash pass's keys per tile, stages and grid.
 cudaError_t leg(bool per_head, const void* x, const void* const* wqkv,
                 const void* wo, const void* bo, void* qkv_ws, void* o_ws,
                 void* out, const int* plan, int B, int T, int C, int H,
-                int launches, cudaStream_t stream) {
+                cudaStream_t stream) {
   if (B <= 0 || T <= 0 || C <= 0 || H <= 0 || C % H || C % 8 ||
-      plan == nullptr || launches < 0 || launches > 7)
+      plan == nullptr)
     return cudaErrorInvalidValue;
   const int dh = C / H, dp = padded_head(dh);
   if (dp == 0) return cudaErrorInvalidValue;
@@ -790,7 +788,7 @@ cudaError_t leg(bool per_head, const void* x, const void* const* wqkv,
   g.dh = dh;
   g.dp = dp;
 
-  if (launches & 1) {  // Q/K/V into the padded head-major workspace
+  {  // Q/K/V into the padded head-major workspace
     LegArgs q = g;
     q.out = static_cast<bf16*>(qkv_ws);
     CUtensorMap maps[4];
@@ -817,7 +815,7 @@ cudaError_t leg(bool per_head, const void* x, const void* const* wqkv,
     }
   }
 
-  if (launches & 2) {  // the flash pass, o into the padded workspace
+  {  // the flash pass, o into the padded workspace
     const int bk = plan[8], stages = plan[9], grid = plan[10];
     const int q_blocks = (T + kBQ - 1) / kBQ;
     FlashArgs f = {};
@@ -848,7 +846,7 @@ cudaError_t leg(bool per_head, const void* x, const void* const* wqkv,
     }
   }
 
-  if (launches & 4) {  // to_out over the heads' padded segments
+  {  // to_out over the heads' padded segments
     const int* p = plan + 4;
     LegArgs q = g;
     q.out = static_cast<bf16*>(out);
@@ -884,11 +882,10 @@ extern "C" int upgpt_selfattn_fullwidth(const void* x, const void* wq,
                                         const void* wo, const void* bo,
                                         void* qkv_ws, void* o_ws, void* out,
                                         const int* plan, int B, int T, int C,
-                                        int heads, int launches,
-                                        void* stream) {
+                                        int heads, void* stream) {
   const void* w[3] = {wq, wk, wv};
   return static_cast<int>(leg(false, x, w, wo, bo, qkv_ws, o_ws, out, plan,
-                              B, T, C, heads, launches,
+                              B, T, C, heads,
                               static_cast<cudaStream_t>(stream)));
 }
 
@@ -899,9 +896,9 @@ extern "C" int upgpt_selfattn_perhead(const void* x, const void* wq_h,
                                       const void* wo_h, const void* bo,
                                       void* qkv_ws, void* o_ws, void* out,
                                       const int* plan, int B, int T, int C,
-                                      int heads, int launches, void* stream) {
+                                      int heads, void* stream) {
   const void* w[3] = {wq_h, wk_h, wv_h};
   return static_cast<int>(leg(true, x, w, wo_h, bo, qkv_ws, o_ws, out, plan,
-                              B, T, C, heads, launches,
+                              B, T, C, heads,
                               static_cast<cudaStream_t>(stream)));
 }

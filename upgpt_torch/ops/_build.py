@@ -65,9 +65,9 @@ SIGNATURES = {
     # chunks, eps, is_bf16, stream
     "upgpt_fused_resblock": ([P] * 11 + [L, P, I] + [I] * 7 + [F, I, P]),
     # x, four weights, bias, Q/K/V and o workspaces, out, plan, B, T, C,
-    # heads, launches, stream
-    "upgpt_selfattn_fullwidth": [P] * 10 + [I] * 5 + [P],
-    "upgpt_selfattn_perhead": [P] * 10 + [I] * 5 + [P],
+    # heads, stream
+    "upgpt_selfattn_fullwidth": [P] * 10 + [I] * 4 + [P],
+    "upgpt_selfattn_perhead": [P] * 10 + [I] * 4 + [P],
     "upgpt_fused_transformer_block": (
         [P, P]                      # x, out
         + [P, P, P, P]              # gn w/b, proj_in w/b

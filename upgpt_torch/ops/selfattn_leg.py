@@ -226,30 +226,32 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(entry: str, fn, x, weights, bo, heads: int, launches: int = 7,
-            workspaces=None):
-    """Both kernels' C call: workspaces for Q/K/V and o (or the caller's),
-    then one call that launches the selected kernels (1 Q/K/V, 2 flash,
-    4 to_out) on the current stream. Returns (out, (qkv, o))."""
+def _workspaces(b: int, t: int, c: int, heads: int,
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Q/K/V and o workspaces of one call, uninitialised: the kernels
+    write every element, pad lanes included."""
+    return tuple(torch.empty(n, dtype=torch.bfloat16, device=device)
+                 for n in workspace_elements(b, t, c, heads))
+
+
+def _launch(entry: str, fn, x, weights, bo, heads: int) -> torch.Tensor:
+    """Both kernels' C call: workspaces for Q/K/V and o, then one call that
+    launches the leg's three kernels on the current stream."""
     b, t, c, _ = _geometry(fn.__name__, x, heads)
     bias = bo.reshape(-1)
     _check(fn.__name__, x, [(x, (b, t, c), torch.bfloat16)]
            + [(w, s, torch.bfloat16) for w, s in weights]
            + [(bias, (c,), torch.float32)])
-    if workspaces is None:
-        workspaces = tuple(torch.empty(n, dtype=torch.bfloat16,
-                                       device=x.device)
-                           for n in workspace_elements(b, t, c, heads))
-    qkv, o = workspaces
+    qkv, o = _workspaces(b, t, c, heads, x.device)
     out = torch.empty_like(x)
     code = getattr(_build.library(), entry)(
         x.data_ptr(), *(w.data_ptr() for w, _ in weights), bias.data_ptr(),
         qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
         _plan_array(b, t, c, heads, _sms(x.device)), b, t, c, heads,
-        launches, torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, fn.__name__)
     fn.launches += 1
-    return out, workspaces
+    return out
 
 
 def _device(name: str, x: torch.Tensor) -> str:
@@ -265,18 +267,9 @@ def selfattn_fullwidth(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     a float32 (C,) or (1, C) bias -> (B, T, C)."""
     if _device("selfattn_fullwidth", x) == "cpu":
         return selfattn_fullwidth_reference(x, wq, wk, wv, wo, bo, heads)
-    return fullwidth_launches(x, wq, wk, wv, wo, bo, heads)[0]
-
-
-def fullwidth_launches(x, wq, wk, wv, wo, bo, heads: int, launches: int = 7,
-                       workspaces=None):
-    """K8's C call with a choice of launches (1 Q/K/V, 2 flash, 4 to_out)
-    on given workspaces, so that each launch can be timed alone:
-    (out, (qkv, o))."""
     c = x.shape[-1]
     return _launch("upgpt_selfattn_fullwidth", selfattn_fullwidth, x,
-                   [(w, (c, c)) for w in (wq, wk, wv, wo)], bo, heads,
-                   launches, workspaces)
+                   [(w, (c, c)) for w in (wq, wk, wv, wo)], bo, heads)
 
 
 def selfattn_perhead(x: torch.Tensor, wq_h: torch.Tensor, wk_h: torch.Tensor,
@@ -286,18 +279,11 @@ def selfattn_perhead(x: torch.Tensor, wq_h: torch.Tensor, wk_h: torch.Tensor,
     bf16 weights as given, a float32 bias -> (B, T, C)."""
     if _device("selfattn_perhead", x) == "cpu":
         return selfattn_perhead_reference(x, wq_h, wk_h, wv_h, wo_h, bo)
-    return perhead_launches(x, wq_h, wk_h, wv_h, wo_h, bo)[0]
-
-
-def perhead_launches(x, wq_h, wk_h, wv_h, wo_h, bo, launches: int = 7,
-                     workspaces=None):
-    """K9's C call, as `fullwidth_launches`."""
     heads, c = wq_h.shape[0], x.shape[-1]
     dh = c // heads
     return _launch("upgpt_selfattn_perhead", selfattn_perhead, x,
                    [(w, (heads, c, dh)) for w in (wq_h, wk_h, wv_h)]
-                   + [(wo_h, (heads, dh, c))], bo, heads, launches,
-                   workspaces)
+                   + [(wo_h, (heads, dh, c))], bo, heads)
 
 
 selfattn_fullwidth.launches = 0  # C calls since the last reset
