@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's sampling, training and 256->512 chain paths on
-one NVIDIA GPU.
+"""Drive the PyTorch port's sampling, training, 256->512 chain and serving
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,8 +9,9 @@ CUDA toolkit. It
 1. builds the port's CUDA kernels from `upgpt_torch/csrc` (one nvcc per
    source, in parallel, sm_90a);
 2. holds each kernel against its plain PyTorch version in bf16 at the
-   shapes the three paths below give it (sampling at batch 8, training at
-   batch 12, the chain at batch 4; the half-step kernel and the two
+   shapes the paths below give it (sampling at batch 8, training at
+   batch 12, the chain at batch 4, mm_512's served batch of 8; the
+   half-step kernel and the two
    GroupNorm kernels after step 5, at every shape the train step and the
    chain run launched them at, with the launches their counters recorded
    there; the GroupNorm statistics alone at the half-step's shapes; an
@@ -58,7 +59,20 @@ CUDA toolkit. It
    beside the parent's device time; then
    `upgpt_torch.benchmarks.micro_block.main` at its defaults,
    counting the wrappers' calls (graph replays uncounted);
-8. prints a JSON line of per-kernel results, the card's name and power
+8. serving: builds mm_512 (the interp_256 U-Net over a 64x48 latent,
+   kl-f8 at 512x384) in bf16 with re-drawn weights, checks its kernel path
+   against the plain path at batch 2 (one U-Net eval, UniPC-8-karras eta-0
+   latents and their uint8 image), writes its checkpoint and builds the
+   serving engine through `upgpt_torch.cli` (UniPC-8-karras, eta 0, batch
+   8, the debug encoder), times the raw pipeline at batch 8 to uint8 on
+   the host (one warm-up, three timed runs, launches counted per batch),
+   runs one batch's dispatch under `torch.cuda.set_sync_debug_mode
+   ("error")`, then serves 12 concurrent /v1/generate requests, a 4-frame
+   /v1/interpolate, /v1/stats and /healthz over HTTP on 127.0.0.1: every
+   reply a 512x384 PNG, the launches those batches' structure gives, and
+   one request's image against the pipeline's on the same packed batch and
+   generators (at most one uint8 level; the share that differs printed);
+9. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
 On every path bf16 attention must run the tensor-core flash kernels: the
@@ -75,6 +89,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.request
 
 import torch
 import torch.nn.functional as F
@@ -140,6 +155,10 @@ SELFATTN_LAUNCHES = (("qkv", "leg_product_kernel<"),
 # differ only in where to_out adds the bias, a bf16 step at most
 SELFATTN_K9_K8_TOL = 1e-2
 TRAIN_BATCH, TRAIN_STEPS, LEARNING_RATE = 12, 5, 2e-6
+# serving mm_512: UniPC-8-karras, eta 0, batch 8; 12 concurrent requests
+# (a full batch and a padded one), then a 4-frame interpolation
+SERVE_VARIANT = "mm_512"
+SERVE_BATCH, SERVE_STEPS, SERVE_REQUESTS, SERVE_FRAMES = 8, 8, 12, 4
 CHAIN_BATCH, CHAIN_TIMED_RUNS = 4, 2
 # K5's and K6's launches by ((N, H, W, C), kernel) per train step and per
 # chain run, as the models' structure and the gates give them: the U-Net's
@@ -336,15 +355,17 @@ def kernel_checks(dev) -> dict:
         # K1, ds1 and ds2: precomputed K/V at the sampling batch, the
         # context projected in-kernel at the training batch; the upscale
         # net's ds4 (C 512, dh 64) with its 86-token K/V at the chain batch
+        # and mm_512's ds2 (T 768, C 448) at the serving batch
         for b, t, c, variant in [(BATCH, 768, 224, "kv"),
                                  (BATCH, 192, 448, "kv"),
                                  (TRAIN_BATCH, 768, 224, "ctx"),
                                  (TRAIN_BATCH, 192, 448, "ctx"),
-                                 (CHAIN_BATCH, 768, 512, "chain")]:
+                                 (CHAIN_BATCH, 768, 512, "chain"),
+                                 (SERVE_BATCH, 768, 448, "serve")]:
             p = _random_block(c, 768, g)
             x = randn(b, t, c).bfloat16()
             tk = UP_CONTEXT_TOKENS if variant == "chain" else CONTEXT_TOKENS
-            if variant in ("kv", "chain"):
+            if variant in ("kv", "chain", "serve"):
                 kv = (randn(b, tk, c).bfloat16(), randn(b, tk, c).bfloat16())
                 kw, work = {"kv": kv}, _block_work(b, t, c, tk)
             else:
@@ -352,7 +373,8 @@ def kernel_checks(dev) -> dict:
                 work = _block_work(b, t, c, tk, 768)
             row = _compare(
                 f"fused_transformer_block[{variant}]", (b, t, c, 8, tk),
-                {"kv": "sampling", "ctx": "training"}.get(variant, "chain"),
+                {"kv": "sampling", "ctx": "training",
+                 "serve": "serve"}.get(variant, "chain"),
                 lambda: ft.fused_transformer_block(x, p, 8, **kw),
                 lambda: ft.transformer_block_reference(x, p, 8, **kw), work)
             row["gemm_library_ms"], row["gemm_library_device_ms"] = \
@@ -365,12 +387,15 @@ def kernel_checks(dev) -> dict:
             cases["fused_transformer_block"].append(row)
         # flash forward: the VAE mid AttnBlock (decoder at the sampling
         # batch, encoder at the training batch), the ds1 self-attention the
-        # training backward recomputes, and the upscale net's ds2
-        # self-attention at the chain batch
+        # training backward recomputes, the upscale net's ds2
+        # self-attention at the chain batch, and mm_512's decoder mid
+        # AttnBlock and ds1 self-attention (T 3072) at the serving batch
         for shape, path in [((BATCH, 1, 768, 512), "sampling"),
                             ((TRAIN_BATCH, 1, 768, 512), "training"),
                             ((TRAIN_BATCH, 8, 768, 28), "training"),
-                            ((CHAIN_BATCH, 8, 3072, 64), "chain")]:
+                            ((CHAIN_BATCH, 8, 3072, 64), "chain"),
+                            ((SERVE_BATCH, 1, 3072, 512), "serve"),
+                            ((SERVE_BATCH, 8, 3072, 28), "serve")]:
             q, k, v = (randn(shape).bfloat16() for _ in range(3))
             bh, t, d = shape[0] * shape[1], shape[2], shape[3]
             cases["flash_attention"].append(_compare(
@@ -1300,9 +1325,11 @@ def _level(cfg, name: str) -> int:
     return int(name.split("_")[1])
 
 
-def expected_sampling_counts(model, b: int, tk: int) -> dict:
-    """Kernel launches of one DDIM-50 run of `model` at batch `b` with a
-    `tk`-token context, from the model's structure: per U-Net eval, the
+def expected_sampling_counts(model, b: int, tk: int,
+                             steps: int = STEPS) -> dict:
+    """Kernel launches of one sampling run of `model` (`steps` U-Net evals,
+    DDIM-50 by default) at batch `b` with a `tk`-token context, and one
+    decode, from the model's structure: per U-Net eval, the
     SpatialTransformers K1 takes, the flash forward in the others' self-
     attention where its gate admits the shape, the ResBlock half-steps the
     half-step gate admits at level 2 (plain otherwise) or the GroupNorm
@@ -1357,7 +1384,7 @@ def expected_sampling_counts(model, b: int, tk: int) -> dict:
             (b, h, w, model.unet.out_norm.weight.numel()), 32)
         n["fused_group_norm" if fits
           else "fused_group_norm_plain_routes"] += 1
-    counts = {k: v * STEPS for k, v in n.items()}
+    counts = {k: v * steps for k, v in n.items()}
     # the decoder: mid blocks at the latent grid, up_{i} at 2**(levels-1-i)
     # times it, norm_out at the image size
     levels = len(vcfg.ch_mult)
@@ -1505,6 +1532,301 @@ def chain_run(dev, card: str) -> dict:
             **e2e}
 
 
+def _http(url: str, payload=None) -> dict:
+    """GET `url`, or POST `payload` as JSON; the decoded JSON reply. A
+    reply other than 200 raises (urllib's HTTPError)."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=(
+        "GET" if payload is None else "POST"),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as reply:
+        if reply.status != 200:
+            raise RuntimeError(f"{url}: HTTP {reply.status}")
+        return json.loads(reply.read())
+
+
+def _image_shape(model) -> tuple:
+    """(H, W, 3) of the images `model` decodes to."""
+    h, w = model.config.latent_size
+    f = 2 ** (len(model.config.vae.ch_mult) - 1)
+    return (f * h, f * w, 3)
+
+
+def _served_image(b64: str, shape: tuple):
+    """A served PNG through the port's reader, checked to be `shape`."""
+    import base64
+
+    from upgpt_torch.inference.png import decode_png
+
+    img = decode_png(base64.b64decode(b64))
+    if img.shape != shape:
+        raise RuntimeError(f"served image {img.shape}, expected {shape}")
+    return img
+
+
+def _trace_engine(engine) -> list:
+    """Record, on the host's clock, when `engine` takes each group
+    (`submit`, with its size), packs each batch (`pack`, with its
+    requests), returns from each dispatch and finishes each fence: the
+    instance's methods wrapped, the engine's code unchanged."""
+    timeline = []
+
+    def traced(name, fn, size=lambda *a: None):
+        def call(*args):
+            out = fn(*args)
+            timeline.append((time.perf_counter(), name, size(*args)))
+            return out
+        return call
+
+    engine.submit_group = traced("submit", engine.submit_group, len)
+    engine._pack = traced("pack", engine._pack,
+                          lambda items: sum(len(it[0]) for it in items))
+    engine.dispatch = traced("dispatched", engine.dispatch)
+    engine.fetch = traced("fenced", engine.fetch)
+    return timeline
+
+
+def _mm512_paths(model, plain, dev) -> dict:
+    """mm_512's kernel path against its plain path on the same weights at
+    batch 2: one U-Net eval, the latents of UniPC-8-karras eta 0, and
+    their uint8 image."""
+    from upgpt_torch.inference.pipeline import GenerationPipeline, _to_uint8
+    from upgpt_torch.models.unet import precompute_cross_kv
+
+    h, w = model.config.latent_size
+    small = _batch(2, h, w, dev, seed=72)
+    g = torch.Generator(device=dev).manual_seed(73)
+    x_t = torch.randn(2, h, w, 4, generator=g, device=dev)
+    eps, lat, img = {}, {}, {}
+    with torch.inference_mode():
+        for tag, m in (("kernel", model), ("plain", plain)):
+            ctx = m.build_context(small["text_emb"], small["style_emb"],
+                                  small["smpl"])
+            cond = {"c_crossattn": ctx, "c_concat": small["person_mask"],
+                    "cross_kv": precompute_cross_kv(m.unet, ctx)}
+            t = torch.tensor([981, 421], device=dev)
+            eps[tag] = m.apply_model(x_t, t, cond)
+            lat[tag] = GenerationPipeline(
+                m, num_steps=SERVE_STEPS, eta=0.0, sampler="unipc",
+                schedule_method="karras", decode=False).generate(
+                small, x_T=x_t)
+            img[tag] = _to_uint8(torch.clamp(
+                m.decode_first_stage(lat[tag]), -1.0, 1.0))
+    for tag in ("kernel", "plain"):
+        for what, val in (("eps", eps[tag]), ("latents", lat[tag])):
+            if not torch.isfinite(val).all():
+                raise RuntimeError(f"mm_512 {tag} path: non-finite {what}")
+    if tuple(img["kernel"].shape) != (2,) + _image_shape(model):
+        raise RuntimeError(f"mm_512 image {tuple(img['kernel'].shape)}")
+    e2e = {"mm512_eps_rel_l2": _rel_l2(eps["kernel"], eps["plain"]),
+           "mm512_latent_rel_l2": _rel_l2(lat["kernel"], lat["plain"]),
+           "mm512_image_rel_l2": _rel_l2(img["kernel"], img["plain"])}
+    print(f"mm_512 end to end (batch 2): eps rel L2 "
+          f"{e2e['mm512_eps_rel_l2']:.3e}, UniPC-{SERVE_STEPS}-karras "
+          f"latents rel L2 {e2e['mm512_latent_rel_l2']:.3e}, uint8 512x384 "
+          f"image rel L2 {e2e['mm512_image_rel_l2']:.3e}", flush=True)
+    if (e2e["mm512_eps_rel_l2"] > EPS_REL_L2
+            or e2e["mm512_latent_rel_l2"] > LATENT_REL_L2
+            or e2e["mm512_image_rel_l2"] > IMAGE_REL_L2):
+        raise RuntimeError(f"mm_512 kernel path disagrees with plain path: "
+                           f"{e2e}")
+    return e2e
+
+
+def serve_run(dev, card: str) -> dict:
+    """mm_512 served over HTTP: the model at full width with re-drawn
+    weights, held kernel path against plain path; its checkpoint written
+    and served through `upgpt_torch.cli`'s construction (UniPC-8-karras,
+    eta 0, batch 8, the debug encoder); the raw pipeline timed at the same
+    batch; one batch's dispatch under the sync debug mode; then 12
+    concurrent /v1/generate requests, a 4-frame /v1/interpolate, /v1/stats
+    and /healthz against the server, and one request's image against the
+    pipeline's on the same packed batch and generators."""
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from upgpt_torch.checkpoint import save_checkpoint
+    from upgpt_torch.cli import _build_serving, parser
+    from upgpt_torch.inference.http_serve import serve
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    model = build_latent_diffusion(SERVE_VARIANT, dtype="bfloat16",
+                                   device=dev)
+    _redraw(model, seed=71, dev=dev)
+    plain = build_latent_diffusion(
+        SERVE_VARIANT, dtype="bfloat16", device=dev,
+        use_flash_attention=False, use_fused_transformer=False)
+    plain.load_state_dict(model.state_dict())
+    e2e = _mm512_paths(model, plain, dev)
+    del plain
+    repo = os.path.dirname(os.path.abspath(__file__))
+    build_dir = os.path.join(repo, "upgpt_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        ckpt = os.path.join(tmp, "mm_512.pt")
+        save_checkpoint(model, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        cfg = {"model": {"target": "upgpt_torch.zoo.build_latent_diffusion",
+                         "params": {"variant": SERVE_VARIANT,
+                                    "dtype": "bfloat16"}},
+               "sampling": {"eta": 0.0}}
+        args = parser().parse_args([
+            "serve", "--ckpt", ckpt, "--debug-encoder",
+            "--batch", str(SERVE_BATCH), "--steps", str(SERVE_STEPS),
+            "--sampler", "unipc", "--schedule", "karras",
+            "--host", "127.0.0.1", "--port", "0"])
+        engine, builder, label = _build_serving(cfg, args)
+    pipe, served = engine.pipeline, engine.pipeline.model
+    shape = _image_shape(served)
+    expected = expected_sampling_counts(served, SERVE_BATCH,
+                                        CONTEXT_TOKENS, pipe.num_steps)
+    rng = np.random.default_rng(74)
+    requests = [{"txt": f"a person in outfit {i}", "seed": i,
+                 "smpl": rng.normal(size=(1, 85)).tolist()}
+                for i in range(SERVE_REQUESTS)]
+
+    # --- the raw pipeline at the same batch: warm-up + 3 timed runs ---
+    batch = engine._pack([([builder.build(r)], None, None)
+                          for r in requests[:SERVE_BATCH]])
+    times, counts = [], []
+    for i in range(1 + TIMED_RUNS):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out, event = engine.dispatch(batch, 1000 + i)
+        host = engine.fetch(out, event)
+        times.append(time.perf_counter() - t0)
+        counts.append(_read_counts())
+        if host.shape != (SERVE_BATCH,) + shape or host.min() == host.max():
+            raise RuntimeError(f"raw pipeline output {host.shape}, range "
+                               f"{host.min()}..{host.max()}")
+    times, counts = times[1:], counts[1:]
+    if any(c != expected for c in counts):
+        raise RuntimeError(f"mm_512 launch counts {counts}, expected "
+                           f"{expected} per batch")
+    raw_s = min(times)
+    print(f"mm_512 raw pipeline ({label}, eta 0) batch {SERVE_BATCH} -> "
+          f"uint8 on the host {(SERVE_BATCH,) + shape}: "
+          f"{' '.join(f'{t:.4f}' for t in times)} s/batch, best "
+          f"{raw_s:.4f} s/batch = {SERVE_BATCH / raw_s:.3f} img/s on {card}; "
+          f"launches per batch {counts[0]}", flush=True)
+
+    # --- one served batch's dispatch makes no host sync ---
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, event = engine.dispatch(batch, 2000)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    engine.fetch(out, event)
+    print("mm_512 dispatch under torch.cuda.set_sync_debug_mode('error'): "
+          "no sync raised", flush=True)
+
+    # --- the server: concurrent requests, interpolation, stats ---
+    engine.start()
+    server = serve(engine, builder, port=0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        health = _http(url + "/healthz")
+        torch.cuda.synchronize()
+        _reset_counts()
+        timeline = _trace_engine(engine)
+        # the clients start together: each waits for all the others
+        start = threading.Barrier(SERVE_REQUESTS + 1)
+
+        def client(req):
+            start.wait()
+            t = time.perf_counter()
+            reply = _http(url + "/v1/generate", req)
+            return reply, time.perf_counter() - t
+
+        with ThreadPoolExecutor(SERVE_REQUESTS) as pool:
+            futures = [pool.submit(client, r) for r in requests]
+            start.wait()
+            t0 = time.perf_counter()
+            replies, client_s = zip(*(f.result() for f in futures))
+            wall = time.perf_counter() - t0
+        generate_batches = engine.stats.batches
+        generate_padded = engine.stats.padded_slots
+        generate_stats = engine.stats.summary()
+        burst = [(round(t - t0, 4), what, n) for t, what, n in timeline]
+        timeline.clear()
+        images = [_served_image(r["image_b64"], shape) for r in replies]
+        interp = _http(url + "/v1/interpolate", {
+            "txt": "a person walking", "seed": 7, "frames": SERVE_FRAMES,
+            "smpl_src": rng.normal(size=(1, 85)).tolist(),
+            "smpl_dst": rng.normal(size=(1, 85)).tolist()})
+        frames = [_served_image(b, shape) for b in interp["frames_b64"]]
+        index = engine.stats.batches
+        reference = {"txt": "the reference request", "seed": 99}
+        served_img = _served_image(
+            _http(url + "/v1/generate", reference)["image_b64"], shape)
+        stats = _http(url + "/v1/stats")
+        batches = engine.stats.batches
+        launches = _read_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+    if len(frames) != SERVE_FRAMES or not health.get("ok"):
+        raise RuntimeError(f"{len(frames)} frames, healthz {health}")
+    if stats["requests"] != SERVE_REQUESTS + SERVE_FRAMES + 1 or (
+            generate_batches < 2):
+        raise RuntimeError(f"stats {stats}, {generate_batches} batches for "
+                           f"{SERVE_REQUESTS} requests")
+    want = {k: v * batches for k, v in expected.items()}
+    if launches != want:
+        raise RuntimeError(f"served launches {launches}, expected {want} "
+                           f"({batches} batches)")
+    # the pipeline on the reference request's packed batch and generators
+    gen, host_gen = engine.generators(index)
+    with torch.inference_mode():
+        direct = pipe.generate(engine.to_device(engine._pack(
+            [([builder.build(reference)], None, None)])), gen,
+            seed_generator=host_gen)[0].cpu().numpy()
+    diff = np.abs(direct.astype(np.int32) - served_img.astype(np.int32))
+    differ = float((diff > 0).mean())
+    print(f"served image against the pipeline's: max |d| {diff.max()} "
+          f"levels, {differ:.6f} of values differ", flush=True)
+    if diff.max() > 1:
+        raise RuntimeError(f"served image differs from the pipeline's by "
+                           f"{diff.max()} levels")
+    if len({im.tobytes() for im in images}) != SERVE_REQUESTS:
+        raise RuntimeError("two served requests returned the same image")
+    img_per_s = SERVE_REQUESTS / wall
+    client_s = sorted(client_s)
+    print(f"mm_512 burst timeline (s after the clients start: event, "
+          f"requests): {burst}", flush=True)
+    print(f"mm_512 served ({label}, batch {SERVE_BATCH}, "
+          f"{engine.max_in_flight} in flight, {engine.max_delay_s} s "
+          f"window): {SERVE_REQUESTS} concurrent /v1/generate in "
+          f"{wall:.4f} s = {img_per_s:.3f} img/s ({generate_batches} "
+          f"batches, {generate_padded} padded slots); engine latency p50 "
+          f"{generate_stats['p50_latency_s']:.4f} s, p95 "
+          f"{generate_stats['p95_latency_s']:.4f} s; client latency "
+          f"{client_s[0]:.4f}..{client_s[-1]:.4f} s; raw pipeline "
+          f"{SERVE_BATCH / raw_s:.3f} img/s, served/raw "
+          f"{img_per_s * raw_s / SERVE_BATCH:.3f}; on {card}", flush=True)
+    return {"launches": launches, "num_steps": pipe.num_steps,
+            "batches": batches, "generate_batches": generate_batches,
+            "requests": stats["requests"],
+            "generate_padded_slots": generate_padded,
+            "padded_slots": engine.stats.padded_slots,
+            "served_wall_s": wall, "served_img_per_s": img_per_s,
+            "p50_latency_s": generate_stats["p50_latency_s"],
+            "p95_latency_s": generate_stats["p95_latency_s"],
+            "client_latency_s": client_s, "burst_timeline": burst,
+            "raw_s_per_batch": times, "raw_img_per_s": SERVE_BATCH / raw_s,
+            "served_max_level_diff": int(diff.max()),
+            "served_share_differing": differ, **e2e}
+
+
 KERNELS = [
     # name, source, replaces (the TPU kernel's def line)
     ("fused_transformer_block", "upgpt_torch/csrc/fused_transformer.cu",
@@ -1530,7 +1852,8 @@ KERNELS = [
 
 def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     """One kernel's line: launches over one sampling run, one train step,
-    one chain run, one UniPC run and one micro_block run (there the
+    one chain run, one UniPC run, the serving phase's batches and one
+    micro_block run (there the
     wrapper's calls, the ones captured in its CUDA graphs included; the
     graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
@@ -1620,9 +1943,12 @@ def main() -> None:
     cases["fused_group_norm"] = gn["fused_group_norm"]
     cases["tiled_group_norm"] = gn["tiled_group_norm"]
 
+    served = serve_run(dev, card)
+    torch.cuda.empty_cache()
     micro = micro_block_run()
     runs = {"sampling_run": sampling, "train_step": training,
-            "chain_run": chain, "unipc_run": unipc, "micro_block": micro}
+            "chain_run": chain, "unipc_run": unipc, "micro_block": micro,
+            "serve_run": served}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]

@@ -56,6 +56,7 @@ def _moved(before, after, route):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,tol", [
     ((2, 1, 768, 512), torch.bfloat16, 2e-2),   # VAE mid AttnBlock
+    ((2, 1, 3072, 512), torch.bfloat16, 2e-2),  # its kl-f8 512px mid (K2)
     ((1, 8, 3072, 64), torch.bfloat16, 2e-2),   # 512px upscale
     ((1, 8, 3072, 28), torch.bfloat16, 2e-2),   # 512px mm_512 ds1
     ((2, 8, 192, 56), torch.bfloat16, 2e-2),    # K1's ds2 head width
@@ -125,6 +126,7 @@ def _random_tree(c, dev, seed=1):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,c,heads", [
     (4, 768, 224, 8), (4, 192, 448, 8), (2, 64, 64, 4), (3, 40, 96, 3),
+    (2, 768, 448, 8),  # mm_512's ds2, past JAX's gate (ROADMAP P5)
 ])
 def test_fused_kernel_matches_twin(dev, b, t, c, heads):
     p = _random_tree(c, dev)
@@ -691,6 +693,44 @@ def test_build_latent_diffusion_lands_on_cuda(dev):
                                    use_fused_vae_groupnorm=True)
     assert all(p.device.type == "cuda" for p in model.parameters())
     assert model.unet.config.fused_level == 2 and model.pose is None
+
+
+@pytest.mark.cuda
+def test_served_batch_dispatch_makes_no_sync(dev):
+    """The serving engine's dispatch (pinned copies, the batch's device and
+    host generators, the sampler, the decode) raises no sync under the
+    sync debug mode, and its images equal the pipeline's on the same batch
+    and generators."""
+    import numpy as np
+
+    from upgpt_torch.inference.http_serve import RequestBuilder
+    from upgpt_torch.inference.encoders import DebugConditioningEncoder
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+    from upgpt_torch.inference.serving import ServingEngine
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    model = build_latent_diffusion("tiny", dtype="bfloat16")
+    pipe = GenerationPipeline(model, num_steps=4, eta=0.0, sampler="unipc",
+                              schedule_method="karras", output_uint8=True)
+    engine = ServingEngine(pipe, batch_size=4)
+    builder = RequestBuilder(DebugConditioningEncoder(), mask_hw=(32, 24))
+    batch = engine._pack([([builder.build({"txt": f"r {i}", "seed": i})],
+                           None, None) for i in range(3)])
+    engine.fetch(*engine.dispatch(batch, 0))  # warm-up
+    torch.cuda.synchronize()
+    before = ft.fused_transformer_block.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, event = engine.dispatch(batch, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = engine.fetch(out, event)
+    assert ft.fused_transformer_block.launches > before
+    gen, host_gen = engine.generators(1)
+    want = pipe.generate(engine.to_device(batch), gen,
+                         seed_generator=host_gen).cpu().numpy()
+    assert got.shape == (4, 64, 48, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda

@@ -24,6 +24,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers on the cores, and
+# a torch pool per worker oversubscribes them
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402

@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers on the cores, and
+# a torch pool per worker oversubscribes them
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -53,7 +56,8 @@ def test_twins_match_jax_self_attention(c, heads, t):
     x = np.random.default_rng(1).normal(size=(2, t, c)).astype(np.float32)
     want = CrossAttention(heads, c // heads, c).apply(
         {"params": jax.tree.map(jnp.asarray, attn1)}, jnp.asarray(x))
-    full, per_head = sl.selfattn_weights(attn1, heads, torch.float32)
+    full, per_head = sl.selfattn_weights(attn1, heads, torch.float32,
+                                         device="cpu")
     tx = torch.from_numpy(x)
     got_full = sl.selfattn_fullwidth_reference(tx, *full, heads)
     got_heads = sl.selfattn_perhead_reference(tx, *per_head)
@@ -71,7 +75,7 @@ def test_library_yardstick_computes_the_same_function():
 
     c, heads = 56, 2
     full, _ = sl.selfattn_weights(_attn1(c, heads, seed=5), heads,
-                                  torch.float32)
+                                  torch.float32, device="cpu")
     wq, wk, wv, wo, bo = full
     x = torch.from_numpy(np.random.default_rng(6).normal(
         size=(2, 24, c)).astype(np.float32))
@@ -99,7 +103,8 @@ def test_wrappers_run_their_twins_on_cpu_tensors():
     attn1 = _attn1(56, 2, seed=3)
     x = torch.from_numpy(np.random.default_rng(4).normal(
         size=(1, 16, 56)).astype(np.float32)).bfloat16()
-    full, per_head = sl.selfattn_weights(attn1, 2, torch.bfloat16)
+    full, per_head = sl.selfattn_weights(attn1, 2, torch.bfloat16,
+                                         device="cpu")
     before = (sl.selfattn_fullwidth.launches, sl.selfattn_perhead.launches)
     assert torch.equal(sl.selfattn_fullwidth(x, *full, 2),
                        sl.selfattn_fullwidth_reference(x, *full, 2))
@@ -196,7 +201,8 @@ def test_kernel_layouts_match_jax_self_attention(c, heads, t):
     x = np.random.default_rng(9).normal(size=(2, t, c)).astype(np.float32)
     want = np.asarray(CrossAttention(heads, c // heads, c).apply(
         {"params": jax.tree.map(jnp.asarray, attn1)}, jnp.asarray(x)))
-    full, _ = sl.selfattn_weights(attn1, heads, torch.float32)
+    full, _ = sl.selfattn_weights(attn1, heads, torch.float32,
+                                  device="cpu")
     dh = c // heads
     for bias_first in (False, True):
         got, written, o = emulate_leg(torch.from_numpy(x), *full, heads,

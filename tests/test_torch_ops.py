@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers on the cores, and
+# a torch pool per worker oversubscribes them
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -224,7 +227,8 @@ def test_bridge_is_strict(fault):
 def test_port_never_imports_jax():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'upgpt_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'upgpt_tpu', 'orbax', 'yaml',\n"
+        "             'PIL'):\n"
         "    sys.modules[name] = None\n"
         "import upgpt_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -232,6 +236,12 @@ def test_port_never_imports_jax():
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 15, mods\n"
+        "for m in ('upgpt_torch.cli', 'upgpt_torch.config',\n"
+        "          'upgpt_torch.checkpoint', 'upgpt_torch.inference.serving',\n"
+        "          'upgpt_torch.inference.http_serve',\n"
+        "          'upgpt_torch.inference.encoders',\n"
+        "          'upgpt_torch.inference.png'):\n"
+        "    assert m in mods, m\n"
         "print(len(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

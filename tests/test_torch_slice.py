@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers on the cores, and
+# a torch pool per worker oversubscribes them
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -63,6 +66,12 @@ def models():
     return jm, params, tm, batch
 
 
+@pytest.fixture(scope="module")
+def jax_decode(models):
+    """JAX's decoder, compiled once for the module's decoder checks."""
+    return jax.jit(models[0].decode_first_stage)
+
+
 def _torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
@@ -82,11 +91,11 @@ def test_tiny_unet_eval_matches_jax(models):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
-def test_tiny_decoder_matches_jax(models):
+def test_tiny_decoder_matches_jax(models, jax_decode):
     jm, params, tm, _ = models
     z = np.random.default_rng(3).normal(size=(B, 32, 24, 4)).astype(
         np.float32)
-    want = jax.jit(jm.decode_first_stage)(params, z)
+    want = jax_decode(params, z)
     with torch.no_grad():
         got = tm.decode_first_stage(torch.from_numpy(z))
     assert got.shape == (B, 64, 48, 3)
@@ -108,12 +117,12 @@ def _jax_draws(key, shape, steps, eta):
 
 
 @pytest.mark.parametrize("eta", [0.0, 1.0])
-def test_tiny_pipeline_matches_jax(models, eta):
+def test_tiny_pipeline_matches_jax(models, jax_decode, eta):
     jm, params, tm, batch = models
     key = jax.random.PRNGKey(7)
     jpipe = JaxPipeline(jm, num_steps=STEPS, eta=eta, decode=False)
     z_want = np.asarray(jpipe.generate(params, batch, key))
-    img_want = jax.jit(jm.decode_first_stage)(params, z_want)
+    img_want = jax_decode(params, z_want)
     img_want = np.asarray(jnp.round(
         (jnp.clip(img_want, -1.0, 1.0) + 1.0) * 127.5).astype(jnp.uint8))
 

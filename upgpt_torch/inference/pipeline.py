@@ -137,7 +137,8 @@ class GenerationPipeline:
         shape = (context.shape[0], h, w, model.config.latent_channels)
         return cond, uncond, shape
 
-    def _initial_noise(self, batch, shape, generator, shared_x_T):
+    def _initial_noise(self, batch, shape, generator, shared_x_T,
+                       seed_generator=None):
         dev = self.model.device
         if shared_x_T:
             return torch.randn((1,) + shape[1:], generator=generator,
@@ -145,11 +146,14 @@ class GenerationPipeline:
         seeds = batch.get("x_T_seed")
         if seeds is None:
             return torch.randn(shape, generator=generator, device=dev)
-        # one base from the call's generator; each distinct seed gets its
-        # own generator from (base, seed), so equal seeds give equal rows
+        # one base from `seed_generator`, else the call's generator; each
+        # distinct seed gets its own generator from (base, seed), so equal
+        # seeds give equal rows. A CPU generator keeps the base, and with
+        # host seeds the whole draw, off the device's queue: no sync
+        src = generator if seed_generator is None else seed_generator
         base = int(torch.randint(
-            2**62, (1,), generator=generator,
-            device=dev if generator is None else generator.device).item())
+            2**62, (1,), generator=src,
+            device=dev if src is None else src.device).item())
         seeds = [int(s) for s in torch.as_tensor(seeds).reshape(-1).tolist()]
         if len(seeds) != shape[0]:
             raise ValueError(f"x_T_seed has {len(seeds)} seeds for a batch "
@@ -185,6 +189,7 @@ class GenerationPipeline:
         shared_x_T: bool = False,
         x_T: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
+        seed_generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Images NHWC: float32 in [-1, 1], uint8 with `output_uint8`, or
         latents with `decode=False`.
@@ -192,11 +197,14 @@ class GenerationPipeline:
         `batch` holds `text_emb`, optional `style_emb`, `smpl`,
         `person_mask`, `uncond` (a cond dict for guidance) and `x_T_seed`
         ((B,) ints). `x_T` and DDIM's per-step `noise` override draws from
-        `generator`.
+        `generator`. `seed_generator`, where given, draws the base of the
+        `x_T_seed` rows instead of `generator`: a CPU generator there, with
+        `x_T_seed` on the host, keeps the call free of device syncs.
         """
         cond, uncond, shape = self._prepare(batch)
         if x_T is None:
-            x_T = self._initial_noise(batch, shape, generator, shared_x_T)
+            x_T = self._initial_noise(batch, shape, generator, shared_x_T,
+                                      seed_generator)
         x_T = x_T.to(self.model.device)
         eps_model = self._eps_model()
         kw = dict(x_T=x_T, guidance_scale=self.guidance_scale, uncond=uncond)
@@ -373,7 +381,7 @@ class ChainedUpscalePipeline:
     both stages use `sampler` on the `schedule_method` grid. Both draw from
     one `generator`, the 256 stage first; `shared_x_T` applies to the 256
     stage; `x_T`, `noise`, `up_x_T` and `up_noise` override the draws of
-    each stage.
+    each stage; `seed_generator` draws the 256 stage's `x_T_seed` base.
     """
 
     def __init__(self, base_model: LatentDiffusion,
@@ -399,9 +407,12 @@ class ChainedUpscalePipeline:
                  x_T: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None,
                  up_x_T: Optional[torch.Tensor] = None,
-                 up_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 up_noise: Optional[torch.Tensor] = None,
+                 seed_generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
         img256 = self.base.generate(batch, generator, shared_x_T=shared_x_T,
-                                    x_T=x_T, noise=noise)
+                                    x_T=x_T, noise=noise,
+                                    seed_generator=seed_generator)
         up_batch = {"text_emb": batch["text_emb"],
                     "style_emb": batch.get("style_emb"),
                     "person_mask": prepare_lr_condition(img256, self.lr_hw)}

@@ -64,12 +64,13 @@ def _split_heads_out(w: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def selfattn_weights(attn1: Mapping, heads: int, dtype=torch.bfloat16,
-                     device="cpu") -> Tuple[tuple, tuple]:
+                     device="cuda") -> Tuple[tuple, tuple]:
     """A JAX `CrossAttention`'s leaves (`to_q`/`to_k`/`to_v`/`to_out`, each
     {"kernel": (in, out)[, "bias"]}, numpy or anything `np.asarray` takes)
     in both layouts: (wq, wk, wv, wo, bo) full-width and (wq_h, wk_h, wv_h,
-    wo_h, bo) per head, the latter through the split helpers. `bo` is
-    float32 (1, C), as the TPU kernels take it."""
+    wo_h, bo) per head, the latter through the split helpers, on `device`
+    (the card unless the caller names another). `bo` is float32 (1, C), as
+    the TPU kernels take it."""
     def leaf(name, key="kernel"):
         return torch.from_numpy(np.array(attn1[name][key], np.float32)).to(
             device)

@@ -1,12 +1,13 @@
 """Model zoo: named builders for the ported UPGPT variants.
 
-Port of `upgpt_tpu.zoo` for the 256px variants, the upscale stage of the
-256->512 chain and the CI geometries:
+Port of `upgpt_tpu.zoo` for the 256px variants, the direct 512px model,
+the upscale stage of the 256->512 chain and the CI geometries:
 
 | variant      | latent   | concat        | context            | first stage |
 |--------------|----------|---------------|--------------------|-------------|
 | pt_256       | 32x24x4  | bbox mask 1ch | 77 txt + 9 sty + 1 | kl-f8       |
 | interp_256   | 32x24x4  | bbox mask 1ch | same               | kl-f8       |
+| mm_512       | 64x48x4  | smpl mask 1ch | same               | kl-f8 512px |
 | upscale      | 128x96x3 | lr image 3ch  | 77 txt + 9 sty     | kl-f4       |
 | tiny         | 32x24x4  | mask 1ch      | 77 txt + 9 sty + 1 | tiny kl-f8  |
 | tiny_upscale | 32x24x3  | lr image 3ch  | 77 txt + 9 sty     | tiny kl-f4  |
@@ -90,6 +91,18 @@ def _interp_256(comp, kernels) -> LatentDiffusionConfig:
     return _pt_256(comp, kernels)  # same graph; loss weights are data-side
 
 
+def _mm_512(comp, kernels) -> LatentDiffusionConfig:
+    # models/upgpt/mm_512/config.yaml: 512x384 -> 64x48 latent, smpl RPM.
+    # The interp_256 U-Net over 4x the tokens: its ds1 blocks (T 3072) run
+    # the twin with the flash kernel for self-attention, ds2 (768, 448) the
+    # block kernel, and the decoder's mid AttnBlock T 3072.
+    return LatentDiffusionConfig(
+        unet=_unet_256(comp, kernels),
+        vae=AutoencoderConfig.kl_f8(dtype=comp, resolution=512,
+                                    **_vae(kernels)),
+        latent_size=(64, 48), latent_channels=4)
+
+
 def _upscale(comp, kernels) -> LatentDiffusionConfig:
     # models/upgpt/upscale/config.yaml:14-23,37-81
     return LatentDiffusionConfig.upscale_512(
@@ -132,7 +145,7 @@ def _tiny_upscale(comp, kernels) -> LatentDiffusionConfig:
 
 
 _BUILDERS = {"pt_256": _pt_256, "interp_256": _interp_256,
-             "upscale": _upscale, "tiny": _tiny,
+             "mm_512": _mm_512, "upscale": _upscale, "tiny": _tiny,
              "tiny_upscale": _tiny_upscale}
 
 
@@ -150,11 +163,20 @@ def build_latent_diffusion(
     use_fused_groupnorm: bool = False,
     use_fused_resblock: bool = False,
     use_fused_vae_groupnorm: bool = False,
+    use_checkpoint: bool = False,
     **overrides,
 ) -> LatentDiffusion:
     """Build a variant with freshly initialised weights in `param_dtype`
     (default: `dtype`), computing in `dtype`, on `device` (the CUDA card
-    unless the caller names another device)."""
+    unless the caller names another device).
+
+    `use_checkpoint` is the JAX configs' rematerialisation switch: False
+    builds the model as it is; True raises, since recomputation in the
+    backward belongs to the rest of training (ROADMAP §1 item 6)."""
+    if use_checkpoint:
+        raise NotImplementedError(
+            "use_checkpoint=True (rematerialisation) is not ported: it "
+            "belongs to the rest of training, ROADMAP §1 item 6")
     if variant not in _BUILDERS:
         raise KeyError(f"unknown variant {variant!r}; have {list(_BUILDERS)}")
     device = torch.device(device)
