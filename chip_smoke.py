@@ -35,6 +35,21 @@ CUDA toolkit. It
    draws at batch 2, then runs the train step at batch 12: one warm-up and
    five timed steps, counting kernel launches per step against the counts
    the model's structure gives;
+   the fit: writes a DeepFashion-shaped tree at interp_256's sizes (48
+   training pairs with the config's men_factor, 24 validation pairs, from
+   a seed) and runs `python -m upgpt_torch.cli train` in-process on
+   `configs/deepfashion/interp_256.yaml` with the debug encoder, the
+   compact transport and the training kernels on (model.params dotlist):
+   two epochs at batch 12 (float32 masters, image grids and weights-only
+   snapshots every 4 steps), then `train --resume` for a third epoch under
+   torch.profiler, each step's launches (the trainer module's
+   `train_step`, wrapped here) held to the bare step's; checks the step
+   and epoch counts, every loss finite, last/best/trainstep_* and the
+   grids, `last`'s EMA against the run's; then `cli sample` from `last` at
+   batch 12, DDIM-50, 12 JPEGs of 256x192, its launches against the
+   model's structure; prints the loop's ms/step beside the bare step's,
+   the card's busy share over the loop, whether the native JPEG core is
+   live, and the training loader's img/s alone (thread and process);
 5. the chain: builds interp_256 and upscale at full width in bf16 with
    every GroupNorm kernel switch on (fused ResBlock half-steps, the out
    head's GroupNorm, the VAEs' GroupNorm) and re-drawn weights, checks the
@@ -352,12 +367,15 @@ def kernel_checks(dev) -> dict:
     randn = lambda *s: torch.randn(*s, generator=g, device=dev)
     cases = {k: [] for k, _, _ in KERNELS}
     with torch.no_grad():
-        # K1, ds1 and ds2: precomputed K/V at the sampling batch, the
+        # K1, ds1 and ds2: precomputed K/V at the sampling batch and at the
+        # training batch (the fit's image logs and `cli sample`), the
         # context projected in-kernel at the training batch; the upscale
         # net's ds4 (C 512, dh 64) with its 86-token K/V at the chain batch
         # and mm_512's ds2 (T 768, C 448) at the serving batch
         for b, t, c, variant in [(BATCH, 768, 224, "kv"),
                                  (BATCH, 192, 448, "kv"),
+                                 (TRAIN_BATCH, 768, 224, "fit"),
+                                 (TRAIN_BATCH, 192, 448, "fit"),
                                  (TRAIN_BATCH, 768, 224, "ctx"),
                                  (TRAIN_BATCH, 192, 448, "ctx"),
                                  (CHAIN_BATCH, 768, 512, "chain"),
@@ -365,7 +383,7 @@ def kernel_checks(dev) -> dict:
             p = _random_block(c, 768, g)
             x = randn(b, t, c).bfloat16()
             tk = UP_CONTEXT_TOKENS if variant == "chain" else CONTEXT_TOKENS
-            if variant in ("kv", "chain", "serve"):
+            if variant in ("kv", "fit", "chain", "serve"):
                 kv = (randn(b, tk, c).bfloat16(), randn(b, tk, c).bfloat16())
                 kw, work = {"kv": kv}, _block_work(b, t, c, tk)
             else:
@@ -373,7 +391,7 @@ def kernel_checks(dev) -> dict:
                 work = _block_work(b, t, c, tk, 768)
             row = _compare(
                 f"fused_transformer_block[{variant}]", (b, t, c, 8, tk),
-                {"kv": "sampling", "ctx": "training",
+                {"kv": "sampling", "ctx": "training", "fit": "fit",
                  "serve": "serve"}.get(variant, "chain"),
                 lambda: ft.fused_transformer_block(x, p, 8, **kw),
                 lambda: ft.transformer_block_reference(x, p, 8, **kw), work)
@@ -1318,6 +1336,377 @@ def train_run(dev, card: str) -> dict:
             "peak_memory_gib": peak_gb, **e2e}
 
 
+# the fit phase: `cli train` on a DeepFashion-shaped tree at interp_256's
+# sizes. The train split's pairs from WOMEN and MEN sources: with the
+# config's men_factor 4 the 28 + 4 rows are 48, four batches of 12; the
+# validation split 24 pairs, two batches
+FIT_TRAIN_PAIRS, FIT_VAL_PAIRS, FIT_EPOCHS = (28, 4), (24, 0), 2
+FIT_IMAGE_LOG_EVERY = FIT_CKPT_EVERY = 4
+FIT_SAMPLE_STEPS = 50
+# the kernel switches `train_run` sets, as the config's model.params dotlist
+FIT_KERNELS = ("use_flash_attention", "use_fused_transformer",
+               "use_fused_groupnorm")
+LOADER_EPOCHS = 2
+
+
+class _StepProbe:
+    """Wraps the trainer module's `train_step` (in this script, not in the
+    package): each call's kernel launches (the counters before and after
+    it), its host start time and CUDA events around it, and a profiler
+    range named `fit_step`."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.records = []
+
+    def __call__(self, *args, **kwargs):
+        before = _read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("fit_step"):
+            start.record()
+            out = self.fn(*args, **kwargs)
+            end.record()
+        after = _read_counts()
+        self.records.append({"t0": t0, "events": (start, end),
+                             "launches": {k: after[k] - before[k]
+                                          for k in after}})
+        return out
+
+
+def _fit_counts(model, per_step: dict, steps: int, evals: int,
+                image_logs: int) -> dict:
+    """Launches of the fit phase's `cli train` runs: `steps` train steps
+    (`per_step` each), `evals` validation losses (forward only: the fused
+    blocks, the VAE encoder's flash forward and the GroupNorm kernel; raw
+    and EMA weights count apart) and `image_logs` image logs (DDIM at the
+    trainer's 20 steps, the final image and six progressive frames
+    decoded)."""
+    from upgpt_torch.training.trainer import TrainerConfig
+
+    tc = TrainerConfig()
+    forward = {k: 0 for k in per_step}
+    for k in ("fused_transformer_block", "fused_group_norm",
+              "fused_group_norm_plain_routes"):
+        forward[k] = per_step[k]
+    forward["flash_attention"] = (per_step["flash_attention"]
+                                  - per_step["flash_backward_dq"])
+    run = expected_sampling_counts(model, TRAIN_BATCH, CONTEXT_TOKENS,
+                                   tc.image_log_ddim_steps)
+    decode = expected_sampling_counts(model, TRAIN_BATCH, CONTEXT_TOKENS, 0)
+    frames = tc.image_log_progressive_frames
+    return {k: steps * per_step[k] + evals * forward[k]
+            + image_logs * (run[k] + frames * decode[k]) for k in per_step}
+
+
+def _fit_intervals(records, per_epoch: int) -> list:
+    """Host ms from one step's start to the next within each epoch, the
+    run's first step left out: the loop's time per step (loader wait,
+    copy, step, the log's read of the metrics)."""
+    out = []
+    for e in range(0, len(records), per_epoch):
+        ts = [r["t0"] for r in records[e:e + per_epoch]][1 if e == 0 else 0:]
+        out += [1e3 * (b - a) for a, b in zip(ts, ts[1:])]
+    return out
+
+
+def _window_busy_ms(prof, first: int, last: int):
+    """Device busy ms (the union of the device activities' intervals) from
+    the start of profiled step `first` to the start of step `last`, and
+    that window's length in ms."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    steps = sorted(e.time_range.start for e in events
+                   if e.name == "fit_step" and e.device_type == DeviceType.CPU)
+    lo, hi = steps[first], steps[last]
+    spans = []
+    for e in events:
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        s, t = max(e.time_range.start, lo), min(e.time_range.end, hi)
+        if t > s:
+            spans.append((s, t))
+    total, end = 0.0, float("-inf")
+    for s, t in sorted(spans):
+        if t <= end:
+            continue
+        total += t - max(s, end)
+        end = t
+    return total / 1e3, (hi - lo) / 1e3
+
+
+def _time_loader(cls, ds, transform, **kw) -> dict:
+    """img/s of a training loader alone over LOADER_EPOCHS epochs after a
+    first one (a worker pool starts there)."""
+    loader = cls(ds, TRAIN_BATCH, shuffle=True, batch_transform=transform,
+                 **kw)
+    try:
+        t0 = time.perf_counter()
+        for _ in loader.epoch(0):
+            pass
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = 0
+        for e in range(1, 1 + LOADER_EPOCHS):
+            for batch in loader.epoch(e):
+                n += len(batch["person_mask"])
+        wall = time.perf_counter() - t0
+    finally:
+        if hasattr(loader, "close"):
+            loader.close()
+    return {"img_per_s": n / wall, "images": n, "first_epoch_s": first_s,
+            "workers": loader.num_workers}
+
+
+def fit_run(dev, card: str, bare_ms: list) -> dict:
+    """`python -m upgpt_torch.cli train` on interp_256 in-process: a
+    DeepFashion-shaped tree at the config's sizes, two epochs at batch 12
+    through `cli.main` (float32 masters, compact transport, the debug
+    encoder, the training kernels on), each step's launches held to
+    `expected_train_counts`; `train --resume` for a third epoch under the
+    profiler; `sample` from the last checkpoint at batch 12, DDIM-50; then
+    the training loader alone. Returns the paths `fit_run` (the two
+    training runs) and `sample_run`."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from upgpt_torch import cli, native
+    from upgpt_torch.checkpoint import read_weights
+    from upgpt_torch.config import instantiate_from_config, merge_configs
+    from upgpt_torch.data.deepfashion import (
+        PrefetchDataLoader, ProcessDataLoader,
+    )
+    from upgpt_torch.data.tree import write_fashion_tree
+    from upgpt_torch.inference.encoders import DebugConditioningEncoder
+    from upgpt_torch.training import trainer as trainer_mod
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, "configs", "deepfashion", "interp_256.yaml")
+    build_dir = os.path.join(repo, "upgpt_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(dir=build_dir, prefix="fit-")
+    free_gb = shutil.disk_usage(work).free / 1e9
+    print(f"fit phase: {free_gb:.1f} GB free beside the checkpoints; native "
+          f"JPEG core live: {native.available()}", flush=True)
+    probe = _StepProbe(trainer_mod.train_step)
+    trainer_mod.train_step = probe
+    try:
+        t0 = time.perf_counter()
+        tree = write_fashion_tree(os.path.join(work, "tree"),
+                                  {"train": FIT_TRAIN_PAIRS,
+                                   "validation": FIT_VAL_PAIRS}, seed=81)
+        print(f"fit phase: tree written in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        logdir = os.path.join(work, "run")
+        dotlist = [f"data.{s}.params.{k}={tree[v]}"
+                   for s in ("train", "validation", "test")
+                   for k, v in (("folder", "folder"),
+                                ("data_file", "data_file"))]
+        dotlist += [f"data.train.params.pair_file=['{tree['train']}']",
+                    f"data.validation.params.pair_file=["
+                    f"'{tree['validation']}']",
+                    f"data.test.params.pair_file=['{tree['validation']}']",
+                    f"trainer.batch_size={TRAIN_BATCH}", "trainer.log_every=1",
+                    "trainer.warm_up_steps=1",
+                    f"trainer.log_images_every={FIT_IMAGE_LOG_EVERY}",
+                    f"trainer.ckpt_every_steps={FIT_CKPT_EVERY}",
+                    f"trainer.logdir={logdir}",
+                    "trainer.compact_transport=True"]
+        dotlist += [f"model.params.{k}=True" for k in FIT_KERNELS]
+        train = ["train", "--base", config, "--debug-encoder"] + dotlist
+        cfg = merge_configs([config], dotlist)
+        with torch.device("meta"):
+            meta = instantiate_from_config(
+                {**cfg["model"], "params": {**cfg["model"]["params"],
+                                            "device": "meta"}})
+        expected = expected_train_counts(meta)
+        per_epoch = len(instantiate_from_config(cfg["data"]["train"])
+                        ) // TRAIN_BATCH
+        val_batches = len(instantiate_from_config(
+            cfg["data"]["validation"])) // TRAIN_BATCH
+
+        # --- two epochs ---
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state = cli.main(train + [f"trainer.max_epochs={FIT_EPOCHS}"])
+        torch.cuda.synchronize()
+        fit_wall = time.perf_counter() - t0
+        if state.step != FIT_EPOCHS * per_epoch:
+            raise RuntimeError(f"fit ran {state.step} steps, "
+                               f"{FIT_EPOCHS * per_epoch} expected")
+        if next(iter(state.params)).dtype != torch.float32:
+            raise RuntimeError("fit trained without float32 masters")
+        del state
+        torch.cuda.empty_cache()
+
+        # --- one more epoch from `last`, profiled ---
+        from torch.profiler import ProfilerActivity, profile
+
+        n_fit = len(probe.records)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = cli.main(train[:1] + ["--resume"] + train[1:] + [
+                f"trainer.max_epochs={FIT_EPOCHS + 1}"])
+            torch.cuda.synchronize()
+            resume_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        fit_counts = _read_counts()
+        if (state.step != (FIT_EPOCHS + 1) * per_epoch
+                or len(probe.records) != state.step):
+            raise RuntimeError(f"resume ended at step {state.step} after "
+                               f"{len(probe.records)} steps")
+        resumed = [json.loads(line) for line in open(
+            os.path.join(logdir, "metrics.jsonl"))]
+        losses = [r["loss"] for r in resumed if "loss" in r]
+        if (len(losses) != state.step
+                or not all(math.isfinite(x) for x in losses)):
+            raise RuntimeError(f"fit losses {losses}")
+        first_resumed = next(r["step"] for r in resumed
+                             if "loss" in r and r["epoch"] == FIT_EPOCHS)
+        if first_resumed != FIT_EPOCHS * per_epoch + 1:
+            raise RuntimeError(f"resume started at step {first_resumed}")
+        bad = [(i, r["launches"]) for i, r in enumerate(probe.records)
+               if r["launches"] != expected]
+        if bad:
+            raise RuntimeError(f"fit step launches {bad[:2]}, expected "
+                               f"{expected} per step")
+        want = _fit_counts(meta, expected, steps=state.step, evals=2 * (
+            1 + (FIT_EPOCHS + 1) * val_batches),
+            image_logs=state.step // FIT_IMAGE_LOG_EVERY)
+        if fit_counts != want or any(
+                fit_counts[k] == 0 for k, _, _ in KERNELS[:5]):
+            raise RuntimeError(f"fit launches {fit_counts}, expected {want}")
+        ckpts = os.listdir(os.path.join(logdir, "checkpoints"))
+        snaps = sorted(c for c in ckpts if c.startswith("trainstep_")
+                       and not c.endswith(".json"))
+        want = [f"trainstep_{s:09d}" for s in range(
+            FIT_CKPT_EVERY, state.step + 1, FIT_CKPT_EVERY)]
+        if "last" not in ckpts or "best" not in ckpts or snaps != want:
+            raise RuntimeError(f"checkpoints {sorted(ckpts)}")
+        grids = os.listdir(os.path.join(logdir, "images"))
+        for kind in ("samples", "progressive", "src_image", "smpl_image",
+                     "styles"):
+            want = {f"{kind}_{s:08d}.png" for s in range(
+                FIT_IMAGE_LOG_EVERY, state.step + 1, FIT_IMAGE_LOG_EVERY)}
+            if not want <= set(grids):
+                raise RuntimeError(f"image grids {sorted(grids)}")
+        # the last checkpoint's EMA weights are the run's, bit for bit
+        saved, _ = read_weights(os.path.join(logdir, "checkpoints", "last"),
+                                "cpu")
+        if not all(torch.equal(saved[n], s.cpu()) for n, s in
+                   zip(state.names, state.ema.shadow)):
+            raise RuntimeError("the last checkpoint's EMA differs from the "
+                               "run's")
+        del state, saved
+        torch.cuda.empty_cache()
+
+        # --- the loop's time per step, beside the bare step's ---
+        for r in probe.records:
+            r["device_ms"] = r["events"][0].elapsed_time(r["events"][1])
+        loop = _fit_intervals(probe.records[:n_fit], per_epoch)
+        fit_ms = float(np.median(loop))
+        step_ms = float(np.median([r["device_ms"] for r in
+                                   probe.records[1:n_fit]]))
+        busy_ms, window_ms = _window_busy_ms(prof, 1, per_epoch - 1)
+        steps_in_window = per_epoch - 2
+        busy_per_step = busy_ms / steps_in_window
+        bare = float(np.median(bare_ms))
+        print(f"fit loop interp_256 batch {TRAIN_BATCH} through cli train "
+              f"(compact transport, {PrefetchDataLoader.__name__}): "
+              f"{' '.join(f'{x:.2f}' for x in loop)} ms/step, median "
+              f"{fit_ms:.2f} ms/step = {TRAIN_BATCH / fit_ms * 1e3:.3f} "
+              f"img/s; "
+              f"bare train step median {bare:.2f} ms/step (best "
+              f"{min(bare_ms):.2f}), fit/bare {fit_ms / bare:.3f}; CUDA "
+              f"events around each step median {step_ms:.2f} ms; on {card}",
+              flush=True)
+        print(f"fit loop device busy (profiled resume epoch, steps 2-"
+              f"{per_epoch}): {busy_per_step:.2f} ms/step, busy share "
+              f"{busy_per_step / fit_ms:.4f} of the unprofiled loop "
+              f"({busy_ms / window_ms:.4f} of the profiled window "
+              f"{window_ms:.2f} ms); fit {fit_wall:.3f} s and resume "
+              f"{resume_wall:.3f} s of wall (model builds, checkpoints, "
+              f"image logs included) on {card}", flush=True)
+
+        # --- cli sample from the last checkpoint ---
+        out_dir = os.path.join(work, "samples")
+        with torch.device("meta"):
+            sampled_model = instantiate_from_config(
+                {**cfg["model"], "params": {**cfg["model"]["params"],
+                                            "device": "meta"}})
+        expected_sample = expected_sampling_counts(
+            sampled_model, TRAIN_BATCH, CONTEXT_TOKENS, FIT_SAMPLE_STEPS)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        imgs = cli.main(["sample", "--base", config, "--debug-encoder",
+                         "--ckpt", os.path.join(logdir, "checkpoints",
+                                                "last"),
+                         "--batch", str(TRAIN_BATCH), "--steps",
+                         str(FIT_SAMPLE_STEPS), "--out", out_dir] + dotlist)
+        sample_wall = time.perf_counter() - t0
+        sample_counts = _read_counts()
+        files = sorted(os.listdir(out_dir))
+        shapes = {np.asarray(Image.open(os.path.join(out_dir, f))).shape
+                  for f in files}
+        if (len(files) != TRAIN_BATCH or shapes != {(256, 192, 3)}
+                or not np.isfinite(imgs).all()):
+            raise RuntimeError(f"cli sample wrote {files}, shapes {shapes}")
+        if sample_counts != expected_sample:
+            raise RuntimeError(f"cli sample launches {sample_counts}, "
+                               f"expected {expected_sample}")
+        print(f"cli sample from checkpoints/last: {TRAIN_BATCH} JPEGs of "
+              f"256x192, DDIM-{FIT_SAMPLE_STEPS} eta 1, {sample_wall:.3f} s "
+              f"of wall (model build and load included); launches "
+              f"{sample_counts}", flush=True)
+
+        # --- the training loader alone ---
+        enc = DebugConditioningEncoder()
+        keep = trainer_mod.Trainer._KEEP
+        memo = {}
+
+        def transform(raw):
+            batch = enc.encode_batch(raw)
+            return trainer_mod.encode_transport(
+                {k: v for k, v in batch.items() if k in keep}, memo)
+
+        ds = instantiate_from_config({**cfg["data"]["train"], "params": {
+            **cfg["data"]["train"]["params"], "compact": True}})
+        loaders = {
+            "prefetch": _time_loader(PrefetchDataLoader, ds, transform),
+            "process": _time_loader(ProcessDataLoader, ds, transform)}
+        for name, r in loaders.items():
+            print(f"training loader alone ({name}, {r['workers']} workers, "
+                  f"compact, debug encoder): {r['img_per_s']:.3f} img/s over "
+                  f"{r['images']} images (first epoch {r['first_epoch_s']:.3f}"
+                  f" s); the fit loop consumed "
+                  f"{TRAIN_BATCH / fit_ms * 1e3:.3f}"
+                  f" img/s", flush=True)
+    finally:
+        trainer_mod.train_step = probe.fn
+        shutil.rmtree(work, ignore_errors=True)
+    fit = {"launches": {k: fit_counts[k] for k in fit_counts},
+           "steps": len(probe.records), "ms_per_step": loop,
+           "median_ms_per_step": fit_ms, "bare_median_ms_per_step": bare,
+           "step_event_ms": [r["device_ms"] for r in probe.records],
+           "busy_ms_per_step": busy_per_step,
+           "busy_share": busy_per_step / fit_ms,
+           "profiled_window_busy_share": busy_ms / window_ms,
+           "fit_wall_s": fit_wall, "resume_wall_s": resume_wall,
+           "losses": losses, "native_jpeg": native.available(),
+           "loader": loaders, "free_disk_gb": free_gb}
+    sample = {"launches": sample_counts, "wall_s": sample_wall}
+    return {"fit_run": fit, "sample_run": sample}
+
+
 def _level(cfg, name: str) -> int:
     """The U-Net level (2**level downsampling) of a module name."""
     if name.startswith("mid"):
@@ -1852,8 +2241,9 @@ KERNELS = [
 
 def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     """One kernel's line: launches over one sampling run, one train step,
-    one chain run, one UniPC run, the serving phase's batches and one
-    micro_block run (there the
+    one chain run, one UniPC run, the serving phase's batches, the fit
+    phase's two `cli train` runs (steps, validation, image logs) and its
+    `cli sample` run, and one micro_block run (there the
     wrapper's calls, the ones captured in its CUDA graphs included; the
     graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
@@ -1933,6 +2323,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     training = train_run(dev, card)
     torch.cuda.empty_cache()
+    fitted = fit_run(dev, card, training["ms_per_step"])
+    torch.cuda.empty_cache()
     chain = chain_run(dev, card)
     torch.cuda.empty_cache()
     k7_by_shape = chain.pop("k7_by_shape")
@@ -1948,7 +2340,7 @@ def main() -> None:
     micro = micro_block_run()
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain, "unipc_run": unipc, "micro_block": micro,
-            "serve_run": served}
+            "serve_run": served, **fitted}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]

@@ -932,3 +932,68 @@ def test_selfattn_leg_kernels_write_every_pad_lane(dev, monkeypatch, b, t,
             assert torch.isfinite(ws).all()
             assert torch.equal(ws[..., dh:], torch.zeros_like(ws[..., dh:]))
     assert len(given) == 2
+
+
+# ------------------------------------------------ training on the card
+
+
+@pytest.mark.cuda
+def test_decode_transport_on_the_card_is_exact(dev):
+    from upgpt_torch.training.trainer import decode_transport
+
+    q = torch.arange(256, dtype=torch.uint8).reshape(1, 16, 16, 1)
+    emb = torch.randn(2, 77, 768).bfloat16()
+    got = decode_transport({"image": q.to(dev), "text_emb": emb.to(dev)})
+    want = decode_transport({"image": q, "text_emb": emb})
+    assert got["image"].dtype == torch.float32
+    assert torch.equal(got["image"].cpu(), want["image"])
+    assert torch.equal(got["text_emb"].cpu(), want["text_emb"])
+
+
+@pytest.mark.cuda
+def test_tiny_fit_on_the_card_then_cli_sample(dev, tmp_path, monkeypatch):
+    """`cli train` for two steps of the tiny model on the card (pinned
+    copies on a side stream, the compact transport, CUDA generators),
+    then `cli sample` from its last checkpoint."""
+    import sys
+
+    from upgpt_torch import cli
+    from upgpt_torch.data.tree import write_fashion_tree
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    tree = write_fashion_tree(tmp_path / "tree", {"train": (2, 0),
+                                                  "validation": (2, 0)},
+                              image_hw=(16, 16), seed=4)
+    dotlist = [f"data.{s}.params.{k}={v}"
+               for s in ("train", "validation", "test")
+               for k, v in (("folder", tree["folder"]),
+                            ("data_file", tree["data_file"]),
+                            ("image_size", "[16,16]"), ("f", 2))]
+    dotlist += [f"data.train.params.pair_file=['{tree['train']}']",
+                f"data.validation.params.pair_file=['{tree['validation']}']",
+                f"data.test.params.pair_file=['{tree['validation']}']",
+                "model.params.variant=tiny", "model.params.latent_size=(8,8)",
+                "model.params.use_fused_groupnorm=True",
+                "trainer.batch_size=2", "trainer.max_epochs=2",
+                "trainer.log_every=1", "trainer.log_images_every=2",
+                "trainer.image_log_ddim_steps=2",
+                f"trainer.logdir={tmp_path / 'run'}"]
+    import os
+
+    config = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "deepfashion",
+        "interp_256.yaml")
+    state = cli.main(["train", "--base", config, "--debug-encoder"]
+                     + dotlist)
+    assert state.step == 2
+    assert all(p.is_cuda and p.dtype == torch.float32 for p in state.params)
+    last = tmp_path / "run" / "checkpoints" / "last"
+    assert last.exists() and (tmp_path / "run" / "images"
+                              / "samples_00000002.png").exists()
+    imgs = cli.main(["sample", "--base", config, "--debug-encoder",
+                     "--ckpt", str(last), "--batch", "2", "--steps", "4",
+                     "--out", str(tmp_path / "out")] + dotlist)
+    assert imgs.shape == (2, 16, 16, 3)
+    assert torch.isfinite(torch.from_numpy(imgs)).all()
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
+        "sample_000.jpg", "sample_001.jpg"]

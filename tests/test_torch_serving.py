@@ -347,10 +347,14 @@ def test_targets_resolve_to_the_port():
 
     assert (config.get_obj_from_str("upgpt_tpu.zoo.build_latent_diffusion")
             is port_build)
+    from upgpt_torch.data.deepfashion import DeepFashionPair
+
+    assert (config.get_obj_from_str(
+        "upgpt_tpu.data.deepfashion.DeepFashionPair") is DeepFashionPair)
     # a target the port does not have names itself
-    with pytest.raises(ImportError, match="upgpt_tpu.data.deepfashion"):
+    with pytest.raises(ImportError, match="upgpt_tpu.eval.harness"):
         config.instantiate_from_config(
-            {"target": "upgpt_tpu.data.deepfashion.DeepFashionPair"})
+            {"target": "upgpt_tpu.eval.harness.dump_test_results"})
     with pytest.raises(ImportError, match="NoSuchBuilder"):
         config.get_obj_from_str("upgpt_tpu.zoo.NoSuchBuilder")
 

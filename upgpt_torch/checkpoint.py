@@ -1,18 +1,27 @@
-"""The port's inference checkpoint: one `torch.save` file.
+"""The port's checkpoints: one `torch.save` file each, in two layouts.
 
-It holds `{"unet", "pose", "vae"}`, the state dicts of a LatentDiffusion's
-three submodules (the JAX params tree's three subtrees; `pose` is empty for
-a variant without a pose stage). `load_checkpoint` loads each strictly and
-refuses a file without VAE weights, as the JAX CLI refuses a checkpoint
-without its first stage (`upgpt_tpu/cli.py:164-171`): decoding would use a
-random VAE. Weights from the JAX package reach this format through
-`convert.from_jax.load_jax_params` and `save_checkpoint`.
+- The serving layout, `{"unet", "pose", "vae"}`: the state dicts of a
+  LatentDiffusion's three submodules (the JAX params tree's three
+  subtrees; `pose` is empty for a variant without a pose stage). Weights
+  from the JAX package reach it through `convert.from_jax.load_jax_params`
+  and `save_checkpoint`.
+- The trainer's layout (`training.trainer.Trainer.save_checkpoint`):
+  `step`, `names`, `params` (the trainable parameters by name, `unet.*`
+  and `pose.*`), `opt_state`, `ema` and `ema_updates` where the run keeps
+  an EMA, and `frozen` = {"vae": the VAE's state dict}. The weights-only
+  `trainstep_*` snapshots leave `opt_state` out.
+
+`load_checkpoint` reads both. From a trainer checkpoint it takes the EMA
+shadow where there is one (ema_scope, reference ddpm.py:179-192, as the
+JAX CLI prefers it, `upgpt_tpu/cli.py:146-177`). It refuses a file without
+VAE weights, as the JAX CLI does (`upgpt_tpu/cli.py:164-171`): decoding
+would use a random VAE.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Union
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -27,21 +36,36 @@ def save_checkpoint(model: LatentDiffusion, path: PathLike) -> None:
                 "vae": model.vae.state_dict()}, path)
 
 
-def load_checkpoint(model: LatentDiffusion, path: PathLike
-                    ) -> LatentDiffusion:
-    """Load `path` into `model` in place (each tensor takes the module's
-    dtype and device) and return it."""
-    payload = torch.load(path, map_location=model.device, weights_only=True)
-    if not payload.get("vae"):
+def read_weights(path: PathLike, map_location=None
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(trainable, vae) of a checkpoint in either layout: the U-Net and
+    pose weights by their names in the model (`unet.*`, `pose.*`), EMA
+    first, and the VAE's state dict. Raises where the file has no VAE."""
+    payload = torch.load(path, map_location=map_location, weights_only=True)
+    if "unet" in payload:
+        trainable = {f"unet.{k}": v for k, v in payload["unet"].items()}
+        trainable.update((f"pose.{k}", v)
+                         for k, v in (payload.get("pose") or {}).items())
+        vae = payload.get("vae")
+    else:
+        trainable = dict(payload.get("ema") or payload["params"])
+        vae = (payload.get("frozen") or {}).get("vae")
+    if not vae:
         raise RuntimeError(
             f"checkpoint {path} carries no VAE (first-stage) weights: "
             f"decoding would use a random VAE")
-    model.unet.load_state_dict(payload["unet"], strict=True)
-    model.vae.load_state_dict(payload["vae"], strict=True)
-    pose = payload.get("pose") or {}
-    if model.pose is not None:
-        model.pose.load_state_dict(pose, strict=True)
-    elif pose:
+    return trainable, vae
+
+
+def load_checkpoint(model: LatentDiffusion, path: PathLike
+                    ) -> LatentDiffusion:
+    """Load `path` (either layout) into `model` in place, strictly (each
+    tensor takes the module's dtype and device), and return it."""
+    trainable, vae = read_weights(path, model.device)
+    if model.pose is None and any(k.startswith("pose.") for k in trainable):
         raise RuntimeError(f"checkpoint {path} has pose weights; the model "
                            f"has no pose stage")
+    state = dict(trainable)
+    state.update((f"vae.{k}", v) for k, v in vae.items())
+    model.load_state_dict(state, strict=True)
     return model

@@ -15,9 +15,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 
-# CLIP's image normalisation (upgpt_tpu/data/transforms.py:22-23)
-CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
-CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+from upgpt_torch.data.transforms import CLIP_MEAN, CLIP_STD
 
 
 class DebugConditioningEncoder:
