@@ -10,7 +10,8 @@ CUDA toolkit. It
    source, in parallel, sm_90a);
 2. holds each kernel against its plain PyTorch version in bf16 at the
    shapes the paths below give it (sampling at batch 8, training at
-   batch 12, the chain at batch 4, mm_512's served batch of 8; the
+   batch 12, inshop_laion's 78-token context at batch 12, the chain at
+   batch 4, mm_512's served batch of 8; the
    half-step kernel and the two
    GroupNorm kernels after step 5, at every shape the train step and the
    chain run launched them at, with the launches their counters recorded
@@ -50,6 +51,21 @@ CUDA toolkit. It
    model's structure; prints the loop's ms/step beside the bare step's,
    the card's busy share over the loop, whether the native JPEG core is
    live, and the training loader's img/s alone (thread and process);
+   CLIP: writes synthetic full-width state dicts (openai's ViT-L/14 CLIP,
+   text 12 x 768 with QuickGELU and vision 24 x 1024; laion's text tower,
+   exact GELU, in HF's layout) and a merges table, builds the towers
+   through the port's converters on the card, holds each against the same
+   tower on the CPU in float32, and times the encode of one training
+   batch (12 captions, 12 x 9 uint8 crops); inshop_laion (the interp_256
+   U-Net with the trainable text-style fusion, a 78-token context,
+   `use_checkpoint`): one AdamW step of the kernel path against the plain
+   path at batch 2, the bare step at batch 12 with and without
+   rematerialisation (ms, memory, launches against the structure with
+   the recompute), `cli train --base
+   configs/deepfashion/inshop_laion_clip.yaml` through those towers over
+   a tree (four steps at batch 12, one epoch: finite losses, the fusion's
+   weights moving, each step's launches), then `cli sample` from its
+   checkpoint at batch 12, DDIM-50, its launches against the structure;
 5. the chain: builds interp_256 and upscale at full width in bf16 with
    every GroupNorm kernel switch on (fused ResBlock half-steps, the out
    head's GroupNorm, the VAEs' GroupNorm) and re-drawn weights, checks the
@@ -200,6 +216,7 @@ GN_LAUNCHES = {
 }
 CONTEXT_TOKENS = 87  # 77 text + 9 style + 1 pose
 UP_CONTEXT_TOKENS = 86  # the upscale stage has no pose token
+LAION_CONTEXT_TOKENS = 78  # 77 fused text + 1 pose (inshop_laion)
 # NVIDIA H100 SXM peaks (data sheet, dense): bf16 tensor cores, float32
 # outside them, device memory
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -369,7 +386,9 @@ def kernel_checks(dev) -> dict:
     with torch.no_grad():
         # K1, ds1 and ds2: precomputed K/V at the sampling batch and at the
         # training batch (the fit's image logs and `cli sample`), the
-        # context projected in-kernel at the training batch; the upscale
+        # context projected in-kernel at the training batch; the same at
+        # inshop_laion's 78-token context (its `cli sample` and its train
+        # step, the latter also in the backward's recompute); the upscale
         # net's ds4 (C 512, dh 64) with its 86-token K/V at the chain batch
         # and mm_512's ds2 (T 768, C 448) at the serving batch
         for b, t, c, variant in [(BATCH, 768, 224, "kv"),
@@ -378,12 +397,18 @@ def kernel_checks(dev) -> dict:
                                  (TRAIN_BATCH, 192, 448, "fit"),
                                  (TRAIN_BATCH, 768, 224, "ctx"),
                                  (TRAIN_BATCH, 192, 448, "ctx"),
+                                 (TRAIN_BATCH, 768, 224, "laion_kv"),
+                                 (TRAIN_BATCH, 192, 448, "laion_kv"),
+                                 (TRAIN_BATCH, 768, 224, "laion_ctx"),
+                                 (TRAIN_BATCH, 192, 448, "laion_ctx"),
                                  (CHAIN_BATCH, 768, 512, "chain"),
                                  (SERVE_BATCH, 768, 448, "serve")]:
             p = _random_block(c, 768, g)
             x = randn(b, t, c).bfloat16()
-            tk = UP_CONTEXT_TOKENS if variant == "chain" else CONTEXT_TOKENS
-            if variant in ("kv", "fit", "chain", "serve"):
+            tk = {"chain": UP_CONTEXT_TOKENS, "laion_kv": LAION_CONTEXT_TOKENS,
+                  "laion_ctx": LAION_CONTEXT_TOKENS}.get(variant,
+                                                         CONTEXT_TOKENS)
+            if variant in ("kv", "fit", "chain", "serve", "laion_kv"):
                 kv = (randn(b, tk, c).bfloat16(), randn(b, tk, c).bfloat16())
                 kw, work = {"kv": kv}, _block_work(b, t, c, tk)
             else:
@@ -392,7 +417,8 @@ def kernel_checks(dev) -> dict:
             row = _compare(
                 f"fused_transformer_block[{variant}]", (b, t, c, 8, tk),
                 {"kv": "sampling", "ctx": "training", "fit": "fit",
-                 "serve": "serve"}.get(variant, "chain"),
+                 "serve": "serve", "laion_kv": "laion_sample",
+                 "laion_ctx": "laion_train"}.get(variant, "chain"),
                 lambda: ft.fused_transformer_block(x, p, 8, **kw),
                 lambda: ft.transformer_block_reference(x, p, 8, **kw), work)
             row["gemm_library_ms"], row["gemm_library_device_ms"] = \
@@ -1184,74 +1210,82 @@ def micro_block_run() -> dict:
             "rel_err": result["rel_err"]}
 
 
-def expected_train_counts(model) -> dict:
-    """Kernel launches per train step, from the model's structure: every
-    SpatialTransformer the fused kernel takes (once, forward); every
-    ResBlock GroupNorm+SiLU and the out head the GroupNorm kernel takes
-    (forward); the flash forward for the VAE encoder's attention and, in
-    K1's recompute backward, for each fused block whose self-attention the
-    flash gate takes, which also runs each backward pass once."""
+def context_tokens(model) -> int:
+    """The cross-attention context's length for `model`: 77 text tokens,
+    then 9 style tokens unless the text-style fusion takes them in, then
+    the pose token where there is a pose stage (87 for interp_256, 78 for
+    inshop_laion, 86 for the upscale stage)."""
+    cfg = model.config
+    return 77 + (0 if cfg.cond_fusion else 9) + (1 if cfg.pose_input_dim
+                                                 else 0)
+
+
+def expected_train_counts(model, b: int = TRAIN_BATCH,
+                          backward: bool = True) -> dict:
+    """Kernel launches per train step (`backward`) or per validation
+    forward, from the model's structure: every SpatialTransformer the
+    fused kernel takes; every ResBlock GroupNorm+SiLU and the out head the
+    GroupNorm kernel takes; the flash forward for the VAE encoder's
+    attention and, in K1's recompute backward, for each fused block whose
+    self-attention the flash gate takes, which also runs each backward
+    pass once. With `use_checkpoint` the backward first runs every
+    ResBlock's and SpatialTransformer's forward again: K1 and the
+    ResBlocks' GroupNorms launch twice a step (the out head's once)."""
     from upgpt_torch.models.unet import cross_attention_layers
     from upgpt_torch.ops.flash_attention import flash_attention_qualifies
     from upgpt_torch.ops.fused_gn import fused_group_norm_qualifies
     from upgpt_torch.ops.fused_transformer import fused_transformer_qualifies
 
     cfg = model.config
-    ucfg = cfg.unet
+    ucfg = model.unet.config
     h, w = cfg.latent_size
-    deepest = len(ucfg.channel_mult) - 1
-    b, heads = TRAIN_BATCH, ucfg.num_heads
-
-    def level(name):
-        return deepest if name.startswith("mid") else int(name.split("_")[1])
-
+    heads = ucfg.num_heads
+    tk = context_tokens(model)
+    # forwards a step of each remat'd module: the step's, and with
+    # use_checkpoint the backward's recompute
+    runs = 1 + int(backward and ucfg.use_checkpoint)
     fused = recompute = 0
     for name, ch in cross_attention_layers(ucfg):
-        s = 2 ** level(name)
+        s = 2 ** _level(ucfg, name)
         t = (h // s) * (w // s)
-        if fused_transformer_qualifies(t, ch, heads, CONTEXT_TOKENS):
+        if fused_transformer_qualifies(t, ch, heads, tk):
             fused += 1
-            recompute += flash_attention_qualifies(
+            recompute += backward and flash_attention_qualifies(
                 b, heads, t, t, ch // heads, ucfg.dtype)
-    norms = [(b, h, w, model.unet.out_norm.weight.numel())]  # the out head
+    res_norms = []
     for kind, name in model.unet._plan:
         if kind == "res":
-            s = 2 ** level(name)
+            s = 2 ** _level(ucfg, name)
             blk = getattr(model.unet, name)
-            norms += [(b, h // s, w // s, norm.weight.numel())
-                      for norm in (blk.norm_in, blk.norm_out)]
-    gn = sum(fused_group_norm_qualifies(shape, 32) for shape in norms)
+            res_norms += [(b, h // s, w // s, norm.weight.numel())
+                          for norm in (blk.norm_in, blk.norm_out)]
+    head = (b, h, w, model.unet.out_norm.weight.numel())
+    gn_res = sum(fused_group_norm_qualifies(x, 32) for x in res_norms)
+    gn_head = int(fused_group_norm_qualifies(head, 32))
     vae = cfg.vae
     c_mid = vae.ch * vae.ch_mult[-1]
     encoder_flash = int(vae.use_flash_attention and flash_attention_qualifies(
         b, 1, h * w, h * w, c_mid, vae.dtype))
-    return {"fused_transformer_block": fused,
+    return {"fused_transformer_block": runs * fused,
             "flash_attention": encoder_flash + recompute,
             "flash_backward_dq": recompute, "flash_backward_dkv": recompute,
-            "fused_group_norm": gn, "tiled_group_norm": 0,
-            "fused_resblock": 0, "flash_reference_backwards": 0,
-            "fused_group_norm_plain_routes": len(norms) - gn,
+            "fused_group_norm": runs * gn_res + gn_head,
+            "tiled_group_norm": 0, "fused_resblock": 0,
+            "flash_reference_backwards": 0,
+            "fused_group_norm_plain_routes": (
+                runs * (len(res_norms) - gn_res) + 1 - gn_head),
             "fused_resblock_plain_routes": 0, **_NO_FMA, **_NO_SELFATTN}
 
 
-def train_run(dev, card: str) -> dict:
+def step_kernel_vs_plain(model, plain, dev, seed: int, label: str) -> dict:
+    """One AdamW step of `model` (kernels on) and `plain` (kernels off) on
+    the same weights, batch (2) and draws, held to the TRAIN_* gates."""
     from upgpt_torch.training.train_state import create_train_state, train_step
-    from upgpt_torch.zoo import build_latent_diffusion
 
-    def build(kernels: bool):
-        return build_latent_diffusion(
-            "interp_256", dtype="bfloat16", param_dtype="float32",
-            device=dev, use_flash_attention=kernels,
-            use_fused_transformer=kernels, use_fused_groupnorm=kernels)
-
-    model = build(True)
-    _redraw(model, seed=21, dev=dev)
-
-    # --- one step, kernel path vs plain path, batch 2 ---
-    plain = build(False)
     plain.load_state_dict(model.state_dict())
-    small = _train_batch(model, 2, dev, seed=22)
-    draws = model.training_draws(2, torch.Generator(device=dev).manual_seed(23))
+    small = _train_batch(model, 2, dev, seed=seed)
+    draws = model.training_draws(2, torch.Generator(device=dev).manual_seed(
+        seed + 1))
     result = {}
     for tag, m in (("kernel", model), ("plain", plain)):
         # no warm-up here: the default schedule's first step is at 1e-6 of
@@ -1271,18 +1305,38 @@ def train_run(dev, card: str) -> dict:
            "train_update_rel_l2": _rel_l2_lists(
                [a - b for a, b in zip(pk, bk)],
                [a - b for a, b in zip(pp, bp)])}
-    print(f"training end to end (batch 2, one AdamW step): loss kernel "
+    print(f"{label} end to end (batch 2, one AdamW step): loss kernel "
           f"{lk:.6f} plain {lp:.6f} (rel {e2e['train_loss_rel']:.3e}), "
           f"gradient rel L2 {e2e['train_grad_rel_l2']:.3e}, parameters rel "
           f"L2 {e2e['train_param_rel_l2']:.3e}, update rel L2 "
           f"{e2e['train_update_rel_l2']:.3e}", flush=True)
-    del plain, result, gk, gp, bk, bp, pk, pp
     if (e2e["train_loss_rel"] > TRAIN_LOSS_REL
             or e2e["train_grad_rel_l2"] > TRAIN_GRAD_REL_L2
             or e2e["train_param_rel_l2"] > TRAIN_PARAM_REL_L2
             or e2e["train_update_rel_l2"] > TRAIN_UPDATE_REL_L2):
-        raise RuntimeError(f"training kernel path disagrees with plain path: "
-                           f"{e2e}")
+        raise RuntimeError(f"{label}: kernel path disagrees with plain "
+                           f"path: {e2e}")
+    model.zero_grad(set_to_none=True)
+    return e2e
+
+
+def train_run(dev, card: str) -> dict:
+    from upgpt_torch.training.train_state import create_train_state, train_step
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    def build(kernels: bool):
+        return build_latent_diffusion(
+            "interp_256", dtype="bfloat16", param_dtype="float32",
+            device=dev, use_flash_attention=kernels,
+            use_fused_transformer=kernels, use_fused_groupnorm=kernels)
+
+    model = build(True)
+    _redraw(model, seed=21, dev=dev)
+
+    # --- one step, kernel path vs plain path, batch 2 ---
+    plain = build(False)
+    e2e = step_kernel_vs_plain(model, plain, dev, 22, "training")
+    del plain
 
     # --- the training path: batch 12, one warm-up and five timed steps ---
     model.zero_grad(set_to_none=True)
@@ -1386,15 +1440,11 @@ def _fit_counts(model, per_step: dict, steps: int, evals: int,
     from upgpt_torch.training.trainer import TrainerConfig
 
     tc = TrainerConfig()
-    forward = {k: 0 for k in per_step}
-    for k in ("fused_transformer_block", "fused_group_norm",
-              "fused_group_norm_plain_routes"):
-        forward[k] = per_step[k]
-    forward["flash_attention"] = (per_step["flash_attention"]
-                                  - per_step["flash_backward_dq"])
-    run = expected_sampling_counts(model, TRAIN_BATCH, CONTEXT_TOKENS,
+    forward = expected_train_counts(model, backward=False)
+    tk = context_tokens(model)
+    run = expected_sampling_counts(model, TRAIN_BATCH, tk,
                                    tc.image_log_ddim_steps)
-    decode = expected_sampling_counts(model, TRAIN_BATCH, CONTEXT_TOKENS, 0)
+    decode = expected_sampling_counts(model, TRAIN_BATCH, tk, 0)
     frames = tc.image_log_progressive_frames
     return {k: steps * per_step[k] + evals * forward[k]
             + image_logs * (run[k] + frames * decode[k]) for k in per_step}
@@ -1643,7 +1693,8 @@ def fit_run(dev, card: str, bare_ms: list) -> dict:
                 {**cfg["model"], "params": {**cfg["model"]["params"],
                                             "device": "meta"}})
         expected_sample = expected_sampling_counts(
-            sampled_model, TRAIN_BATCH, CONTEXT_TOKENS, FIT_SAMPLE_STEPS)
+            sampled_model, TRAIN_BATCH, context_tokens(sampled_model),
+            FIT_SAMPLE_STEPS)
         torch.cuda.synchronize()
         _reset_counts()
         t0 = time.perf_counter()
@@ -1705,6 +1756,476 @@ def fit_run(dev, card: str, bare_ms: list) -> dict:
            "loader": loaders, "free_disk_gb": free_gb}
     sample = {"launches": sample_counts, "wall_s": sample_wall}
     return {"fit_run": fit, "sample_run": sample}
+
+
+# CLIP at full width: openai's ViT-L/14 CLIP (text 12 x 768 QuickGELU,
+# vision 24 x 1024) and laion's text tower (12 x 768, exact GELU, HF
+# layout), synthetic weights written to disk and read back through the
+# port's converters. Towers on the card against the same towers on the CPU
+# in float32 (TF32 off) on CLIP_CHECK_TEXTS captions and CLIP_CHECK_CROPS
+# crops: max|d|/max|ref| under CLIP_REL_TOL. Both sides are float32 and
+# differ only in summation order through 12 or 24 blocks; measured on an
+# H100 (700 W): 1.57e-6 (openai text), 1.40e-6 (laion text), 1.27e-6
+# (ViT-L/14), so the bound has a margin of 6x or more.
+CLIP_REL_TOL = 1e-5
+CLIP_CHECK_TEXTS, CLIP_CHECK_CROPS, CLIP_VOCAB = 4, 2, 49408
+CLIP_TIMED = 5
+# the inshop_laion phase: `cli train` over 48 training pairs (four steps
+# of 12, no men_factor in that config) and 12 validation pairs, one epoch
+LAION_CONFIG = os.path.join("configs", "deepfashion", "inshop_laion_clip.yaml")
+LAION_TRAIN_PAIRS, LAION_VAL_PAIRS = (48, 0), (12, 0)
+LAION_SAMPLE_STEPS = 50
+
+
+def _clip_state_dicts(dev, seed: int):
+    """(openai CLIP state dict, laion text state dict in HF layout), host
+    float32 tensors drawn on the card: weights N(0, 1/fan_in), norm scales
+    1 + 0.1 N(0, 1), biases and shifts 0.1 N(0, 1), embeddings 0.02
+    N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def mat(*shape, std=None):
+        std = 1 / math.sqrt(math.prod(shape[1:])) if std is None else std
+        return (std * torch.randn(*shape, generator=g, device=dev)).cpu()
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=g, device=dev)).cpu()
+
+    def norm(sd, prefix, w):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = vec(w, 1.0), vec(w)
+
+    def linear(sd, prefix, o, i):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = mat(o, i), vec(o)
+
+    def openai_blocks(sd, prefix, w, layers):
+        for i in range(layers):
+            lp = f"{prefix}transformer.resblocks.{i}"
+            linear(sd, f"{lp}.attn", 3 * w, w)
+            sd[f"{lp}.attn.in_proj_weight"] = sd.pop(f"{lp}.attn.weight")
+            sd[f"{lp}.attn.in_proj_bias"] = sd.pop(f"{lp}.attn.bias")
+            linear(sd, f"{lp}.attn.out_proj", w, w)
+            norm(sd, f"{lp}.ln_1", w)
+            norm(sd, f"{lp}.ln_2", w)
+            linear(sd, f"{lp}.mlp.c_fc", 4 * w, w)
+            linear(sd, f"{lp}.mlp.c_proj", w, 4 * w)
+
+    openai = {"token_embedding.weight": mat(CLIP_VOCAB, 768, std=0.02),
+              "positional_embedding": mat(77, 768, std=0.02),
+              "text_projection": mat(768, 768)}
+    openai_blocks(openai, "", 768, 12)
+    norm(openai, "ln_final", 768)
+    openai.update({"visual.conv1.weight": mat(1024, 3, 14, 14),
+                   "visual.class_embedding": mat(1024, std=0.02),
+                   "visual.positional_embedding": mat(257, 1024, std=0.02),
+                   "visual.proj": mat(1024, 768)})
+    openai_blocks(openai, "visual.", 1024, 24)
+    norm(openai, "visual.ln_pre", 1024)
+    norm(openai, "visual.ln_post", 1024)
+    p = "text_model."
+    laion = {f"{p}embeddings.token_embedding.weight": mat(CLIP_VOCAB, 768,
+                                                          std=0.02),
+             f"{p}embeddings.position_embedding.weight": mat(77, 768,
+                                                             std=0.02),
+             "text_projection.weight": mat(768, 768)}
+    for i in range(12):
+        lp = f"{p}encoder.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(laion, f"{lp}.self_attn.{proj}", 768, 768)
+        norm(laion, f"{lp}.layer_norm1", 768)
+        norm(laion, f"{lp}.layer_norm2", 768)
+        linear(laion, f"{lp}.mlp.fc1", 3072, 768)
+        linear(laion, f"{lp}.mlp.fc2", 768, 3072)
+    norm(laion, f"{p}final_layer_norm", 768)
+    return openai, laion
+
+
+def _write_merges(path: str) -> None:
+    """A synthetic merges table in openai's gzip format (a header line,
+    then the merges): each caption word of `data/tree.py` built up a
+    character at a time. The real table (48,894 merges) is not in the
+    repository."""
+    import gzip
+
+    from upgpt_torch.data.tree import _WORDS
+
+    merges = []
+    for word in _WORDS:
+        pieces = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(pieces) > 1:
+            pair = (pieces[0], pieces[1])
+            if pair not in merges:
+                merges.append(pair)
+            pieces = [pieces[0] + pieces[1]] + pieces[2:]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(["#version: 0.2"] + [" ".join(m) for m in merges]))
+
+
+def _captions(n: int, seed: int) -> list:
+    import numpy as np
+
+    from upgpt_torch.data.tree import _WORDS
+
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(_WORDS, size=int(rng.integers(4, 12))))
+            for _ in range(n)]
+
+
+def _clip_flops(b: int, t: int, d: int, layers: int) -> float:
+    """A CLIP tower's float32 operations: per block Q/K/V/out and the MLP
+    (24 T D^2) and the two attention products (4 T^2 D), per sequence."""
+    return b * layers * (24 * t * d * d + 4 * t * t * d)
+
+
+def clip_run(dev, card: str, work: str) -> dict:
+    """The CLIP towers at full width: synthetic openai and laion state
+    dicts and a merges file written under `work`, towers built through
+    `CLIPConditioningEncoder.from_files` on the card, each held against
+    the same tower on the CPU, then the encode of one training batch (12
+    captions, 12 x 9 uint8 crops) timed. Returns the files for the laion
+    phase and the measurements."""
+    from upgpt_torch.convert.clip_weights import (
+        text_tower_from_state_dict, vision_tower_from_state_dict,
+    )
+    from upgpt_torch.inference.encoders import CLIPConditioningEncoder
+
+    t0 = time.perf_counter()
+    openai, laion = _clip_state_dicts(dev, seed=61)
+    files = {"openai": os.path.join(work, "openai_vit_l14.pt"),
+             "laion_text": os.path.join(work, "laion_text_hf.pt"),
+             "bpe": os.path.join(work, "bpe_simple_vocab.txt.gz")}
+    torch.save(openai, files["openai"])
+    torch.save(laion, files["laion_text"])
+    _write_merges(files["bpe"])
+    print(f"clip phase: synthetic state dicts written in "
+          f"{time.perf_counter() - t0:.3f} s ("
+          f"{sum(v.numel() for v in openai.values()) / 1e6:.1f} M + "
+          f"{sum(v.numel() for v in laion.values()) / 1e6:.1f} M values)",
+          flush=True)
+    encoders = {
+        "openai": CLIPConditioningEncoder.from_files(
+            files["openai"], files["openai"], files["bpe"], quick_gelu=True,
+            device=dev),
+        "laion": CLIPConditioningEncoder.from_files(
+            files["laion_text"], files["openai"], files["bpe"],
+            quick_gelu=False, device=dev)}
+    tok = encoders["laion"].tokenizer
+    ids = torch.from_numpy(tok(_captions(CLIP_CHECK_TEXTS, 62)))
+    crops = torch.randint(0, 256, (CLIP_CHECK_CROPS, 224, 224, 3),
+                          generator=torch.Generator().manual_seed(63),
+                          dtype=torch.uint8)
+    from upgpt_torch.inference.encoders import _dequant_styles
+
+    pixels = _dequant_styles(crops)
+    checks = {}
+    with torch.no_grad():
+        for name, sd, quick in (("openai_text", openai, True),
+                                ("laion_text", laion, False)):
+            cpu = text_tower_from_state_dict(sd, quick, "cpu")
+            gpu = encoders["openai" if quick else "laion"].text_tower
+            want, got = cpu(ids), gpu(ids.to(dev))
+            checks[name] = max(
+                ((a.cpu() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(got, want))
+            del cpu
+        cpu = vision_tower_from_state_dict(openai, False, "cpu")
+        want = cpu(pixels)
+        got = encoders["laion"].style_encoder.vision(pixels.to(dev))
+        checks["vision_l14"] = max(
+            ((a.cpu() - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(got, want))
+        del cpu
+    del openai, laion
+    for name, rel in checks.items():
+        print(f"clip {name} on the card vs the CPU (float32; hidden states "
+              f"and pooled): max|d|/max|ref| {rel:.3e}", flush=True)
+        if not math.isfinite(rel) or rel > CLIP_REL_TOL:
+            raise RuntimeError(f"clip {name}: card and CPU disagree "
+                               f"({rel:.3e} > {CLIP_REL_TOL})")
+    # the encode of one training batch: the trainer's device half
+    b = TRAIN_BATCH
+    batch = {"token_ids": torch.from_numpy(tok(_captions(b, 64))).to(dev),
+             "styles": torch.randint(0, 256, (b, 9, 224, 224, 3), device=dev,
+                                     dtype=torch.uint8)}
+    enc = encoders["laion"]
+    times = {}
+    with torch.no_grad():
+        for name, fn in (
+                ("encode", lambda: enc.encode_device(batch)),
+                ("text", lambda: enc.text_tower(batch["token_ids"])),
+                ("styles", lambda: enc.style_encoder(
+                    _dequant_styles(batch["styles"])))):
+            times[name] = _time_ms(fn, CLIP_TIMED)
+        out = enc.encode_device(batch)
+    if (tuple(out["text_emb"].shape) != (b, 77, 768)
+            or tuple(out["style_emb"].shape) != (b, 9, 768)
+            or not all(torch.isfinite(v).all() for v in out.values())):
+        raise RuntimeError(f"clip encode: "
+                           f"{[(k, tuple(v.shape)) for k, v in out.items()]}")
+    flops = (_clip_flops(b, 77, 768, 12)
+             + _clip_flops(9 * b, 257, 1024, 24)
+             + 2 * 9 * b * 256 * 1024 * 3 * 14 * 14)
+    bound_ms = flops / PEAK_F32 * 1e3
+    print(f"clip encode of a training batch ({b} captions, {b}x9 uint8 "
+          f"crops; laion towers, float32): {times['encode']:.2f} ms (text "
+          f"{times['text']:.2f}, styles {times['styles']:.2f}); "
+          f"{flops / 1e12:.2f} TFLOP, float32 bound {bound_ms:.2f} ms at "
+          f"67 TFLOP/s; on {card}", flush=True)
+    del encoders, enc, batch, out
+    torch.cuda.empty_cache()
+    return {"files": files, "rel_err": checks, "encode_ms": times,
+            "encode_tflop": flops / 1e12, "encode_bound_ms": bound_ms}
+
+
+def laion_run(dev, card: str, work: str, clip: dict) -> dict:
+    """inshop_laion at full width (the interp_256 U-Net with the text-style
+    fusion, a 78-token context, `use_checkpoint`): one AdamW step of the
+    kernel path against the plain path; the bare train step at batch 12
+    with and without rematerialisation (ms, peak memory, launches against
+    `expected_train_counts`); then `cli train --base
+    configs/deepfashion/inshop_laion_clip.yaml` through the CLIP encoder
+    (the clip phase's files) over a tree, its steps' launches held to the
+    structure, the fusion's weights moving, and `cli sample` from its
+    checkpoint at batch 12, DDIM-50, its launches against
+    `expected_sampling_counts(model, 12, tk=78)`. Returns the paths
+    `laion_train` and `laion_sample`."""
+    import dataclasses
+
+    import numpy as np
+    from PIL import Image
+
+    from upgpt_torch import cli
+    from upgpt_torch.config import instantiate_from_config, merge_configs
+    from upgpt_torch.data.tree import write_fashion_tree
+    from upgpt_torch.training import trainer as trainer_mod
+    from upgpt_torch.training.train_state import create_train_state, train_step
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    def build(kernels: bool):
+        return build_latent_diffusion(
+            "inshop_laion", dtype="bfloat16", param_dtype="float32",
+            device=dev, use_checkpoint=True, use_flash_attention=kernels,
+            use_fused_transformer=kernels, use_fused_groupnorm=kernels)
+
+    # --- one step, kernel path vs plain path, batch 2 ---
+    model = build(True)
+    _redraw(model, seed=71, dev=dev)
+    plain = build(False)
+    e2e = step_kernel_vs_plain(model, plain, dev, 72, "inshop_laion training")
+    del plain
+    torch.cuda.empty_cache()
+    if context_tokens(model) != LAION_CONTEXT_TOKENS:
+        raise RuntimeError(f"inshop_laion context {context_tokens(model)}")
+
+    # --- the bare step at batch 12, with and without rematerialisation ---
+    batch = _train_batch(model, TRAIN_BATCH, dev, seed=73)
+    gen = torch.Generator(device=dev).manual_seed(74)
+    bare = {}
+    for remat in (True, False):
+        model.unet.config = dataclasses.replace(model.unet.config,
+                                                use_checkpoint=remat)
+        expected = expected_train_counts(model)
+        state = create_train_state(model, LEARNING_RATE)
+        train_step(model, state, batch, gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, counts = [], []
+        for _ in range(2):
+            _reset_counts()
+            t0 = time.perf_counter()
+            state, metrics = train_step(model, state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            counts.append(_read_counts())
+        if any(c != expected for c in counts) or not math.isfinite(
+                metrics["loss"].item()):
+            raise RuntimeError(f"inshop_laion step (use_checkpoint={remat}) "
+                               f"launches {counts}, expected {expected}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the forward and backward alone, above what stays resident (the
+        # masters, AdamW's moments, the EMA): the saved activations and
+        # the gradients, without the optimizer's temporaries
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model.training_loss(batch, gen)[0].backward()
+        torch.cuda.synchronize()
+        above = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        bare[remat] = {"ms_per_step": times, "launches": counts[0],
+                       "peak_memory_gib": peak,
+                       "resident_gib": resident / 2**30,
+                       "forward_backward_gib": above}
+        print(f"inshop_laion train step batch {TRAIN_BATCH} (embeddings "
+              f"given), use_checkpoint={remat}: "
+              f"{' '.join(f'{x:.2f}' for x in times)} ms/step, peak memory "
+              f"{peak:.3f} GiB a step; forward + backward "
+              f"{above:.3f} GiB above the resident {resident / 2**30:.3f} "
+              f"GiB; launches per step {counts[0]}; on {card}", flush=True)
+        del state
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # --- cli train through the CLIP encoder ---
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, LAION_CONFIG)
+    tree = write_fashion_tree(os.path.join(work, "tree"),
+                              {"train": LAION_TRAIN_PAIRS,
+                               "validation": LAION_VAL_PAIRS}, seed=75)
+    logdir = os.path.join(work, "run")
+    files = clip["files"]
+    dotlist = [f"data.{s}.params.{k}={tree[v]}"
+               for s in ("train", "validation")
+               for k, v in (("folder", "folder"), ("data_file", "data_file"))]
+    dotlist += [f"data.train.params.pair_file=['{tree['train']}']",
+                f"data.validation.params.pair_file=['{tree['validation']}']",
+                f"trainer.batch_size={TRAIN_BATCH}", "trainer.log_every=1",
+                "trainer.warm_up_steps=1", "trainer.max_epochs=1",
+                f"trainer.logdir={logdir}", "trainer.compact_transport=True",
+                f"clip.text_params={files['laion_text']}",
+                f"clip.vision_params={files['openai']}",
+                f"clip.bpe_path={files['bpe']}"]
+    dotlist += [f"model.params.{k}=True" for k in FIT_KERNELS]
+    cfg = merge_configs([config], dotlist)
+    if not cfg["model"]["params"].get("use_checkpoint"):
+        raise RuntimeError("inshop_laion_clip.yaml no longer sets "
+                           "use_checkpoint")
+    with torch.device("meta"):
+        meta = instantiate_from_config(
+            {**cfg["model"], "params": {**cfg["model"]["params"],
+                                        "device": "meta"}})
+    expected = expected_train_counts(meta)
+    steps = len(instantiate_from_config(cfg["data"]["train"])) // TRAIN_BATCH
+    val_batches = len(instantiate_from_config(
+        cfg["data"]["validation"])) // TRAIN_BATCH
+    probe = _StepProbe(trainer_mod.train_step)
+    fusion_start = {}
+
+    def step(model, state, batch, gen):
+        if not fusion_start:
+            fusion_start.update(
+                (n, p.detach().clone()) for n, p in zip(state.names,
+                                                        state.params)
+                if n.startswith("cond_fusion."))
+        return probe(model, state, batch, gen)
+
+    trainer_mod.train_step = step
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state = cli.main(["train"] + dotlist + ["--base", config])
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.train_step = probe.fn
+    train_counts = _read_counts()
+    records = [json.loads(line) for line in open(
+        os.path.join(logdir, "metrics.jsonl"))]
+    losses = [r["loss"] for r in records if "loss" in r]
+    if (state.step != steps or len(probe.records) != steps
+            or len(losses) != steps
+            or not all(math.isfinite(x) for x in losses)):
+        raise RuntimeError(f"laion cli train: {state.step} steps, losses "
+                           f"{losses}")
+    bad = [(i, r["launches"]) for i, r in enumerate(probe.records)
+           if r["launches"] != expected]
+    if bad:
+        raise RuntimeError(f"laion step launches {bad[:2]}, expected "
+                           f"{expected} per step")
+    want = _fit_counts(meta, expected, steps=steps,
+                       evals=2 * (1 + val_batches), image_logs=0)
+    if train_counts != want:
+        raise RuntimeError(f"laion cli train launches {train_counts}, "
+                           f"expected {want}")
+    by_name = dict(zip(state.names, state.params))
+    moved = sum(not torch.equal(fusion_start[n], by_name[n])
+                for n in fusion_start)
+    reached = sum(bool(by_name[n].grad is not None
+                       and by_name[n].grad.abs().max() > 0)
+                  for n in fusion_start)
+    if not fusion_start or moved != len(fusion_start) or reached == 0:
+        raise RuntimeError(f"cond_fusion: {moved}/{len(fusion_start)} "
+                           f"tensors moved, {reached} with a gradient on "
+                           f"the last step")
+    for r in probe.records:
+        r["device_ms"] = r["events"][0].elapsed_time(r["events"][1])
+    loop = _fit_intervals(probe.records, steps)
+    loop_ms = float(np.median(loop))
+    event_ms = " ".join(f"{r['device_ms']:.2f}" for r in probe.records)
+    print(f"laion cli train (inshop_laion_clip.yaml, batch {TRAIN_BATCH}, "
+          f"use_checkpoint, CLIP encoder on the card, compact transport): "
+          f"losses {' '.join(f'{x:.6f}' for x in losses)}; fit loop "
+          f"{' '.join(f'{x:.2f}' for x in loop)} ms/step, median "
+          f"{loop_ms:.2f} ms/step = {TRAIN_BATCH / loop_ms * 1e3:.3f} img/s;"
+          f" CUDA events around each step {event_ms} ms; "
+          f"the encode alone {clip['encode_ms']['encode']:.2f} ms a batch "
+          f"(clip phase); {moved}/{len(fusion_start)} fusion tensors moved, "
+          f"{reached} with a gradient on the last step; launches per step "
+          f"{expected}, in all {train_counts}; {train_wall:.3f} s of wall; "
+          f"on {card}", flush=True)
+    del state, by_name, fusion_start
+    torch.cuda.empty_cache()
+
+    # --- cli sample from that checkpoint through the CLIP encoder ---
+    out_dir = os.path.join(work, "samples")
+    expected_sample = expected_sampling_counts(
+        meta, TRAIN_BATCH, LAION_CONTEXT_TOKENS, LAION_SAMPLE_STEPS)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    imgs = cli.main(["sample", "--base", config, "--ckpt",
+                     os.path.join(logdir, "checkpoints", "last"), "--batch",
+                     str(TRAIN_BATCH), "--steps", str(LAION_SAMPLE_STEPS),
+                     "--out", out_dir] + dotlist)
+    sample_wall = time.perf_counter() - t0
+    sample_counts = _read_counts()
+    files_out = sorted(os.listdir(out_dir))
+    shapes = {np.asarray(Image.open(os.path.join(out_dir, f))).shape
+              for f in files_out}
+    if (len(files_out) != TRAIN_BATCH or shapes != {(256, 192, 3)}
+            or not np.isfinite(imgs).all()):
+        raise RuntimeError(f"laion cli sample wrote {files_out}, shapes "
+                           f"{shapes}")
+    if sample_counts != expected_sample:
+        raise RuntimeError(f"laion cli sample launches {sample_counts}, "
+                           f"expected {expected_sample}")
+    print(f"laion cli sample from checkpoints/last through the CLIP "
+          f"encoder: {TRAIN_BATCH} JPEGs of 256x192, DDIM-"
+          f"{LAION_SAMPLE_STEPS} eta 1, {sample_wall:.3f} s of wall (model "
+          f"build, load and encode included); launches {sample_counts}",
+          flush=True)
+    train = {"launches": train_counts, "steps": steps, "losses": losses,
+             "ms_per_step": loop, "median_ms_per_step": loop_ms,
+             "step_event_ms": [r["device_ms"] for r in probe.records],
+             "launches_per_step": expected, "wall_s": train_wall,
+             "bare_step": {str(k): v for k, v in bare.items()},
+             "encode_ms": clip["encode_ms"], **e2e}
+    return {"laion_train": train,
+            "laion_sample": {"launches": sample_counts,
+                             "wall_s": sample_wall}}
+
+
+def clip_and_laion_run(dev, card: str) -> dict:
+    """The clip phase, then the inshop_laion phases on its files, in a
+    temporary directory under `upgpt_torch/_build` removed after."""
+    import shutil
+    import tempfile
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "upgpt_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(dir=build_dir, prefix="laion-")
+    try:
+        clip = clip_run(dev, card, work)
+        torch.cuda.empty_cache()
+        out = laion_run(dev, card, work, clip)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["laion_train"]["clip"] = {k: v for k, v in clip.items()
+                                  if k != "files"}
+    return out
 
 
 def _level(cfg, name: str) -> int:
@@ -2325,6 +2846,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     fitted = fit_run(dev, card, training["ms_per_step"])
     torch.cuda.empty_cache()
+    laion = clip_and_laion_run(dev, card)
+    torch.cuda.empty_cache()
     chain = chain_run(dev, card)
     torch.cuda.empty_cache()
     k7_by_shape = chain.pop("k7_by_shape")
@@ -2340,7 +2863,7 @@ def main() -> None:
     micro = micro_block_run()
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain, "unipc_run": unipc, "micro_block": micro,
-            "serve_run": served, **fitted}
+            "serve_run": served, **fitted, **laion}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]

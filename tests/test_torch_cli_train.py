@@ -170,9 +170,9 @@ def test_data_verify_reports_like_jax(tree, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--multihost"], "item 6"),
-    (["sample", "--tp", "2", "--ckpt", "x"], "item 6"),
-    (["sample", "--ckpt", "SIDECAR"], "item 9")])
+    (["train", "--multihost"], "item 10"),
+    (["sample", "--tp", "2", "--ckpt", "x"], "item 10"),
+    (["sample", "--ckpt", "SIDECAR"], "item 8")])
 def test_unported_options_are_refused(tmp_path, argv, item):
     if "SIDECAR" in argv:
         ckpt = tmp_path / "student"
@@ -182,3 +182,102 @@ def test_unported_options_are_refused(tmp_path, argv, item):
         cli.main(argv + ["--base", CONFIG, "--debug-encoder",
                          "model.params.variant=tiny",
                          "model.params.device=cpu"])
+
+
+# ------------------------------------------------ CLIP and the fusion
+
+LAION = os.path.join(REPO, "configs", "deepfashion", "inshop_laion_clip.yaml")
+MERGES = [("w", "o"), ("wo", "man</w>"), ("s", "h"), ("sh", "ir"),
+          ("shir", "t</w>"), ("r", "e"), ("re", "d</w>"), ("d", "e"),
+          ("de", "n"), ("den", "im</w>")]
+
+
+@pytest.fixture(scope="module")
+def clip_files(tmp_path_factory):
+    """Small towers in openai's layout, text and `visual.` in one file
+    (one block each; the text 768 wide, the U-Net's context width; the
+    vision 128 wide over 224x224 crops, projected to 768), and a merges
+    file: the `clip.*` dotlist."""
+    from test_torch_clip import _torch_sd, openai_clip
+
+    from upgpt_torch.data.tokenizer import CLIPTokenizer
+
+    root = tmp_path_factory.mktemp("clip")
+    vocab = CLIPTokenizer(merges=MERGES).eos_id + 1
+    torch.save(_torch_sd(openai_clip(
+        13, image=224, vocab=vocab, pos=77, text_width=768,
+        vision_width=128, layers=1, proj=768)), root / "clip.pt")
+    (root / "bpe.txt").write_text("\n".join(" ".join(m) for m in MERGES))
+    return [f"clip.text_params={root / 'clip.pt'}",
+            f"clip.vision_params={root / 'clip.pt'}",
+            f"clip.bpe_path={root / 'bpe.txt'}"]
+
+
+def _laion_dotlist(tree, logdir, clip_files):
+    """inshop_laion_clip.yaml on `tiny` with its fusion (and the config's
+    remat and smpl RPM mask), the compact transport on the CPU."""
+    # the config has no test split: sampling reads the validation split
+    return ([a for a in _dotlist(tree, logdir)
+             if not a.startswith("data.test.")] + clip_files
+            + ["model.params.cond_fusion=image",
+               "trainer.compact_transport=True", "trainer.scale_lr=True"])
+
+
+@pytest.fixture(scope="module")
+def laion_trained(tree, clip_files, tmp_path_factory):
+    logdir = tmp_path_factory.mktemp("laion")
+    dotlist = _laion_dotlist(tree, logdir, clip_files)
+    # no --debug-encoder: the dotlist follows the options
+    state = cli.main(["train"] + dotlist + ["trainer.max_epochs=3",
+                                            "--base", LAION])
+    return dotlist, logdir, state
+
+
+def test_train_laion_through_clip(laion_trained):
+    from upgpt_torch.config import merge_configs
+
+    dotlist, logdir, state = laion_trained
+    cfg = merge_configs([LAION], dotlist)
+    assert cfg["model"]["params"]["use_checkpoint"] is True
+    assert cfg["data"]["train"]["params"]["input_mask_type"] == "smpl"
+    assert state.step == 3  # 2 pairs (no men_factor) a batch, 3 epochs
+    fusion = [n for n in state.names if n.startswith("cond_fusion.")]
+    assert fusion and state.names[:1] == ["unet.time_embed_0.weight"]
+    records = [json.loads(x) for x in open(logdir / "metrics.jsonl")]
+    assert all(np.isfinite(r["loss"]) for r in records if "loss" in r)
+    assert any("val/loss_simple_ema" in r for r in records)
+    # the fusion trains: on step 3 the gradient reaches it (steps 1 and 2
+    # move the zero-initialised out conv and proj_out first)
+    grads = dict(zip(state.names, (p.grad for p in state.params)))
+    assert all(grads[n].abs().max() > 0 for n in fusion)
+    saved, _ = read_weights(str(logdir / "checkpoints" / "last"))
+    assert set(fusion) <= set(saved)
+
+
+def test_sample_laion_through_clip_equals_the_pipeline(
+        laion_trained, tmp_path):
+    from upgpt_torch.checkpoint import load_checkpoint
+    from upgpt_torch.config import instantiate_from_config, merge_configs
+    from upgpt_torch.data.deepfashion import DataLoader
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+
+    dotlist, logdir, _ = laion_trained
+    last = str(logdir / "checkpoints" / "last")
+    imgs = cli.main(["sample", "--base", LAION, "--ckpt", last, "--batch",
+                     "2", "--steps", "4", "--out", str(tmp_path / "out")]
+                    + dotlist)
+    assert sorted(os.listdir(tmp_path / "out")) == ["sample_000.jpg",
+                                                    "sample_001.jpg"]
+    cfg = merge_configs([LAION], dotlist)
+    model = load_checkpoint(instantiate_from_config(cfg["model"]), last)
+    enc = cli._build_cond_encoder(cfg, model)
+    assert not enc.text_tower.config.quick_gelu  # R6: the fusion's towers
+    raw = next(DataLoader(instantiate_from_config(
+        cfg["data"]["validation"]), 2, shuffle=False).epoch(0))
+    batch = enc.encode_batch(raw)
+    assert batch["text_emb"].shape == (2, 77, 768)
+    batch = {k: torch.as_tensor(batch[k]) for k in (
+        "text_emb", "style_emb", "smpl", "person_mask")}
+    want = GenerationPipeline(model, num_steps=4, eta=1.0).generate(
+        batch, torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(imgs, want.float().numpy())

@@ -997,3 +997,51 @@ def test_tiny_fit_on_the_card_then_cli_sample(dev, tmp_path, monkeypatch):
     assert torch.isfinite(torch.from_numpy(imgs)).all()
     assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
         "sample_000.jpg", "sample_001.jpg"]
+
+
+@pytest.mark.cuda
+def test_clip_encode_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
+    """The trainer's split CLIP encode on the card (tokens on the host,
+    pinned copies and the towers on the copy stream, the step's stream
+    waiting on its event) against the whole encode on the CPU, float32
+    with TF32 off on both backends (cuDNN takes the patch conv in TF32 by
+    default), small towers read from port-layout state dicts."""
+    from upgpt_torch.inference.encoders import CLIPConditioningEncoder
+    from upgpt_torch.models.clip import (
+        CLIPTextConfig, CLIPTextTower, CLIPVisionConfig, CLIPVisionTower,
+    )
+    from upgpt_torch.training.trainer import Trainer, TrainerConfig
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    import sys
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.manual_seed(0)
+    merges = [("r", "e"), ("re", "d</w>"), ("c", "o"), ("co", "at</w>")]
+    (tmp_path / "bpe.txt").write_text("\n".join(" ".join(m) for m in merges))
+    torch.save(CLIPTextTower(CLIPTextConfig(
+        vocab_size=600, num_layers=1)).state_dict(), tmp_path / "text.pt")
+    torch.save(CLIPVisionTower(CLIPVisionConfig(
+        hidden_size=128, num_layers=1, num_heads=2)).state_dict(),
+        tmp_path / "vision.pt")
+    files = [str(tmp_path / n) for n in ("text.pt", "vision.pt", "bpe.txt")]
+    card = CLIPConditioningEncoder.from_files(*files, device=dev)
+    cpu = CLIPConditioningEncoder.from_files(*files, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    raw = {"txt": ["a red coat", "red red coat coat"],
+           "styles": torch.randint(0, 256, (2, 9, 224, 224, 3), generator=g,
+                                   dtype=torch.uint8).numpy(),
+           "smpl": torch.randn(2, 1, 85, generator=g).numpy()}
+    trainer = Trainer(build_latent_diffusion("tiny", device=dev),
+                      TrainerConfig(compact_transport=True,
+                                    logdir=str(tmp_path / "run")), card)
+    host = trainer.host_encode(raw)
+    assert set(host) == {"token_ids", "styles", "smpl"}
+    got = trainer._ready(trainer._device_batch(host))
+    want = cpu.encode_batch(raw)
+    assert set(got) == {"text_emb", "style_emb", "smpl"}
+    for k in ("text_emb", "style_emb"):
+        assert got[k].is_cuda and got[k].dtype == torch.float32
+        assert _rel(got[k].cpu(), want[k]) <= 1e-5, k

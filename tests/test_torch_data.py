@@ -14,6 +14,7 @@ package's core decode; it is skipped only where no libjpeg header exists.
 import io
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -174,13 +175,43 @@ def test_prefetch_loader_propagates_errors_and_stops():
     loader = tdf.PrefetchDataLoader(BadDs(), 2, shuffle=False, num_workers=2)
     with pytest.raises(ValueError, match="boom"):
         list(loader.epoch(0))
-    before = set(threading.enumerate())
+    # only the loader's own threads (its producer and decode pool, named):
+    # under xdist the worker process starts threads of its own. They are
+    # polled, not joined: `threading.enumerate` also lists a thread still
+    # starting (the decode pool grows while the producer runs), and
+    # joining one of those raises
+    def loader_threads():
+        return {t for t in threading.enumerate()
+                if t.name.startswith(tdf.PRODUCER_THREAD)}
+
+    before = loader_threads()
     it = loader.epoch(1)
     assert next(it)["x"].tolist() == [[0, 0], [1, 1]]
     it.close()  # an abandoned epoch unwinds its producer
-    for t in set(threading.enumerate()) - before:
-        t.join(timeout=5)
-        assert not t.is_alive()
+    deadline = time.monotonic() + 10
+    while loader_threads() - before and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not loader_threads() - before
+
+
+def test_bad_input_mask_type_raises_value_error(tree):
+    # a ValueError, not an assert: `python -O` strips asserts
+    with pytest.raises(ValueError, match="input_mask_type 'depth'"):
+        tdf.DeepFashionPair(folder=tree["folder"], image_dir="img_256",
+                            pair_file=[tree["train"]],
+                            data_file=tree["data_file"],
+                            input_mask_type="depth")
+
+
+@pytest.mark.parametrize("batch,index,count,match", [
+    (6, 0, 4, "does not split over 4 processes"),
+    (4, 2, 2, r"process_index 2 outside \[0, 2\)"),
+    (4, -1, 2, r"process_index -1 outside"),
+])
+def test_uneven_process_split_raises_value_error(batch, index, count, match):
+    with pytest.raises(ValueError, match=match):
+        tdf.DataLoader(list(range(12)), batch, process_index=index,
+                       process_count=count)
 
 
 def test_segmenters_equal_jax():

@@ -38,12 +38,16 @@ from upgpt_torch.ops import gemm_plan as gp  # noqa: E402
 from upgpt_torch.ops import selfattn_leg as sl  # noqa: E402
 
 # K1 on the paths: (b, t, c, tk, ctx_dim) at the sampling batch (8), the
-# chain batch (4, both nets) and the training batch (12, context projected)
+# chain batch (4, both nets), the training batch (12, context projected)
+# and inshop_laion's 78-token context at batch 12 (its `cli sample` with
+# K/V, its training with the context)
 K1_SHAPES = [
     (8, 768, 224, 87, None), (8, 192, 448, 87, None),
     (4, 768, 224, 87, None), (4, 192, 448, 87, None),
     (4, 768, 512, 86, None),
     (12, 768, 224, 87, 768), (12, 192, 448, 87, 768),
+    (12, 768, 224, 78, None), (12, 192, 448, 78, None),
+    (12, 768, 224, 78, 768), (12, 192, 448, 78, 768),
 ]
 # K7 on the chain at batch 4: every (shape, O) the two U-Nets give it
 # (interp_256's level-2 half-steps at 32x24, 16x12 and 8x6; the upscale

@@ -240,7 +240,10 @@ def test_port_never_imports_jax():
         "          'upgpt_torch.checkpoint', 'upgpt_torch.inference.serving',\n"
         "          'upgpt_torch.inference.http_serve',\n"
         "          'upgpt_torch.inference.encoders',\n"
-        "          'upgpt_torch.inference.png'):\n"
+        "          'upgpt_torch.inference.png', 'upgpt_torch.models.clip',\n"
+        "          'upgpt_torch.models.cond_fusion',\n"
+        "          'upgpt_torch.convert.clip_weights',\n"
+        "          'upgpt_torch.data.tokenizer'):\n"
         "    assert m in mods, m\n"
         "print(len(mods))\n"
     )

@@ -202,8 +202,9 @@ def test_chained_upscale_serving(pipe):
     np.testing.assert_array_equal(outs[0][0], want[0])
 
 
-@pytest.mark.parametrize("flag,item", [("dp", "item 6"), ("tp", "item 6"),
-                                       ("sidecar", "item 9")])
+@pytest.mark.parametrize("flag,item", [("dp", "item 10"),
+                                       ("tp", "item 10"),
+                                       ("sidecar", "item 8")])
 def test_unported_serving_options_are_refused(tmp_path, flag, item):
     ckpt = tmp_path / "model.pt"
     if flag == "sidecar":
@@ -222,8 +223,19 @@ def test_unported_serving_options_are_refused(tmp_path, flag, item):
 def test_cond_encoder_needs_the_debug_flag_and_refuses_clip(pipe):
     from upgpt_torch.cli import _build_cond_encoder
 
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # CLIP needs its weights and the merges file, as in JAX: text weights
+    # alone are no CLIP config, and the debug encoder needs the flag
+    with pytest.raises(SystemExit, match="--debug-encoder"):
         _build_cond_encoder({"clip": {"text_params": "clip/text"}},
+                            pipe.model)
+    with pytest.raises(SystemExit, match="clip.vision_params"):
+        _build_cond_encoder({"clip": {"text_params": "clip/text",
+                                      "bpe_path": "clip/bpe.txt"}},
+                            pipe.model, allow_debug=True)
+    with pytest.raises(FileNotFoundError):
+        _build_cond_encoder({"clip": {"text_params": "clip/text",
+                                      "vision_params": "clip/vision",
+                                      "bpe_path": "clip/bpe.txt"}},
                             pipe.model, allow_debug=True)
     with pytest.raises(SystemExit, match="--debug-encoder"):
         _build_cond_encoder({}, pipe.model)
@@ -367,11 +379,9 @@ def test_use_checkpoint_is_taken(use_checkpoint):
                                      "model.params.device=meta",
                                      f"model.params.use_checkpoint="
                                      f"{use_checkpoint}"])
-    if use_checkpoint:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            config.instantiate_from_config(cfg["model"])
-    else:
-        with torch.device("meta"):
-            model = config.instantiate_from_config(cfg["model"])
-        assert model.config == build_latent_diffusion(
-            "tiny", dtype="bfloat16", device="meta").config
+    with torch.device("meta"):
+        model = config.instantiate_from_config(cfg["model"])
+    assert model.config.unet.use_checkpoint is use_checkpoint
+    assert model.config == build_latent_diffusion(
+        "tiny", dtype="bfloat16", device="meta",
+        use_checkpoint=use_checkpoint).config

@@ -8,8 +8,10 @@ the CPU.
   leaf's largest value (b * m + (1 - b) * g and p - lr * update cancel
   where their terms are close, and there the two sides' last bits, one
   contracting a multiply and an add, show relatively larger);
-  bf16 moments and shadow within one bf16 step of JAX's; the EMA and the
-  LR schedule's count pinned.
+  bf16 moments within one bf16 step of JAX's, and with them a float32
+  shadow against a float32 recomputation where JAX keeps a bf16 one (the
+  reference fault R1); the EMA and the LR schedule's count pinned; the
+  shadow moving at decay 0.9999 with either moment dtype.
 - The transport, the LR rule and `TrainerConfig` against JAX's.
 - `Trainer.fit` on the `tiny` model over a DeepFashion-shaped tree at
   16x16 (an 8x8 latent): equal to a hand loop of `train_step` on the same
@@ -54,6 +56,7 @@ from upgpt_torch.inference.encoders import (  # noqa: E402
     DebugConditioningEncoder,
 )
 from upgpt_torch.models.unet import UNetConfig  # noqa: E402
+from upgpt_torch.training import ema as tema  # noqa: E402
 from upgpt_torch.training import lr as tlr  # noqa: E402
 from upgpt_torch.training import trainer as ttrainer  # noqa: E402
 from upgpt_torch.training.train_state import (  # noqa: E402
@@ -146,17 +149,33 @@ def test_fused_train_state_matches_jax(small, moments, use_ema):
     assert state.mu[0].dtype == getattr(torch, moments)
     rng = np.random.default_rng(5)
     apply = jax.jit(lambda s, g: s.apply_gradients(g))
-    for _ in range(3):
+    # the shadow recomputed in float32 from the port's parameters after
+    # each update: s <- s - (1 - decay_n) * (s - p)
+    shadow = [p.detach().float().numpy().copy() for p in state.params]
+    for n in range(1, 4):
         g = jax.tree.map(
             lambda a: rng.normal(size=a.shape).astype(np.float32), trainable)
         _feed(state, g)
         jstate = apply(jstate, g)
         state.apply_gradients()
+        w = np.float32(1.0) - np.float32(tema.ema_decay(n, 0.999))
+        shadow = [s - w * (s - p.detach().float().numpy())
+                  for s, p in zip(shadow, state.params)]
     trees = [(jstate.params, state.params),
              (jstate.opt_state["mu"], state.mu),
              (jstate.opt_state["nu"], state.nu)]
-    if use_ema:
+    if use_ema and moments == "float32":
         trees.append((jstate.ema.shadow, state.ema.shadow))
+    elif use_ema:
+        # the divergence from JAX (the reference fault R1): JAX keeps the
+        # shadow in bf16 beside bf16 moments, where it freezes at decay
+        # 0.9999; the port keeps it in float32, held to the recomputation
+        assert {s.dtype for s in state.ema.shadow} == {torch.float32}
+        assert {str(a.dtype) for a in jax.tree.leaves(jstate.ema.shadow)
+                } == {"bfloat16"}
+        for got, want in zip(state.ema.shadow, shadow):
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=1e-6 * np.abs(want).max())
     for i, (tree, port) in enumerate(trees):
         for got, want in _pairs(tree, dict(zip(state.names, port))):
             if moments == "float32":
@@ -177,6 +196,31 @@ def test_fused_train_state_matches_jax(small, moments, use_ema):
         assert state.ema.num_updates == int(jstate.ema.num_updates) == 3
     else:
         assert state.ema is None and jstate.ema is None
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_fused_ema_shadow_moves_at_decay_0_9999(moments):
+    """A shadow at 1.0 behind a parameter held at 1.05 (zero gradients, no
+    weight decay) moves toward it at decay 0.9999: 1.05 - 0.05 * 0.9999^n
+    after n updates. A bf16 shadow stays at 1.0, since each update (5e-6)
+    is below half a bf16 step at 1.0 (R1)."""
+    model = torch.nn.Module()
+    model.vae = torch.nn.Linear(1, 1)
+    model.unet = torch.nn.Linear(1, 1, bias=False)
+    with torch.no_grad():
+        model.unet.weight.fill_(1.05)
+    state = create_fused_train_state(model, 1e-3, scheduler=lambda s: 1.0,
+                                     ema_decay=0.9999, weight_decay=0.0,
+                                     moment_dtype=moments)
+    state.ema.shadow[0].fill_(1.0)
+    state.ema.num_updates = 10**6  # past the warm-up: the decay is 0.9999
+    for _ in range(10_000):
+        state.apply_gradients()
+    got = state.ema.shadow[0].item()
+    want = 1.05 - 0.05 * 0.9999 ** 10_000
+    assert state.ema.shadow[0].dtype == torch.float32
+    assert model.unet.weight.item() == np.float32(1.05)
+    assert abs(got - want) < 1e-4, (got, want)
 
 
 def test_accumulation_matches_optax_multisteps(small):

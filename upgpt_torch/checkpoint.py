@@ -1,15 +1,16 @@
 """The port's checkpoints: one `torch.save` file each, in two layouts.
 
-- The serving layout, `{"unet", "pose", "vae"}`: the state dicts of a
-  LatentDiffusion's three submodules (the JAX params tree's three
-  subtrees; `pose` is empty for a variant without a pose stage). Weights
+- The serving layout, `{"unet", "pose", "vae"}` and `cond_fusion` where
+  the model has the text-style fusion: the state dicts of a
+  LatentDiffusion's submodules (the JAX params tree's subtrees; `pose` is
+  empty for a variant without a pose stage). Weights
   from the JAX package reach it through `convert.from_jax.load_jax_params`
   and `save_checkpoint`.
 - The trainer's layout (`training.trainer.Trainer.save_checkpoint`):
-  `step`, `names`, `params` (the trainable parameters by name, `unet.*`
-  and `pose.*`), `opt_state`, `ema` and `ema_updates` where the run keeps
-  an EMA, and `frozen` = {"vae": the VAE's state dict}. The weights-only
-  `trainstep_*` snapshots leave `opt_state` out.
+  `step`, `names`, `params` (the trainable parameters by name, `unet.*`,
+  `pose.*` and `cond_fusion.*`), `opt_state`, `ema` and `ema_updates`
+  where the run keeps an EMA, and `frozen` = {"vae": the VAE's state
+  dict}. The weights-only `trainstep_*` snapshots leave `opt_state` out.
 
 `load_checkpoint` reads both. From a trainer checkpoint it takes the EMA
 shadow where there is one (ema_scope, reference ddpm.py:179-192, as the
@@ -32,20 +33,25 @@ PathLike = Union[str, os.PathLike]
 
 def save_checkpoint(model: LatentDiffusion, path: PathLike) -> None:
     pose = {} if model.pose is None else model.pose.state_dict()
-    torch.save({"unet": model.unet.state_dict(), "pose": pose,
-                "vae": model.vae.state_dict()}, path)
+    payload = {"unet": model.unet.state_dict(), "pose": pose,
+               "vae": model.vae.state_dict()}
+    if model.cond_fusion is not None:
+        payload["cond_fusion"] = model.cond_fusion.state_dict()
+    torch.save(payload, path)
 
 
 def read_weights(path: PathLike, map_location=None
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(trainable, vae) of a checkpoint in either layout: the U-Net and
-    pose weights by their names in the model (`unet.*`, `pose.*`), EMA
-    first, and the VAE's state dict. Raises where the file has no VAE."""
+    """(trainable, vae) of a checkpoint in either layout: the U-Net, pose
+    and fusion weights by their names in the model (`unet.*`, `pose.*`,
+    `cond_fusion.*`), EMA first, and the VAE's state dict. Raises where
+    the file has no VAE."""
     payload = torch.load(path, map_location=map_location, weights_only=True)
     if "unet" in payload:
         trainable = {f"unet.{k}": v for k, v in payload["unet"].items()}
-        trainable.update((f"pose.{k}", v)
-                         for k, v in (payload.get("pose") or {}).items())
+        for sub in ("pose", "cond_fusion"):
+            trainable.update((f"{sub}.{k}", v)
+                             for k, v in (payload.get(sub) or {}).items())
         vae = payload.get("vae")
     else:
         trainable = dict(payload.get("ema") or payload["params"])

@@ -21,8 +21,10 @@ the JAX package's `configs/deepfashion/*.yaml` drive the port unchanged:
 (flax's `param_dtype`), from `trainer.seed`, and ships batches to the card
 in the compact transport by default. `sample` and `serve` take either
 checkpoint layout of `upgpt_torch.checkpoint` (a trainer checkpoint's EMA
-first) and cast the weights to bf16 on the card. The JAX CLI's `test`,
-`eval`, `convert`, `train-vae`, `distill` and `bringup`, its CLIP encoder,
+first) and cast the weights to bf16 on the card. `clip.*` in the config
+names the CLIP towers' weights (torch state dicts) and the BPE merges; the
+debug encoder (`--debug-encoder`) stands in without them. The JAX CLI's
+`test`, `eval`, `convert`, `train-vae`, `distill` and `bringup`,
 `--multihost`, `--dp`, `--tp` and the distilled-student sidecar are not
 ported yet; each option names the ROADMAP item it waits on.
 """
@@ -42,12 +44,26 @@ from upgpt_torch.utils.diagnostics import cast_floating
 
 
 def _build_cond_encoder(cfg, model, allow_debug=False):
+    """The CLIP encoder where the config names its weights
+    (`clip.text_params`, `clip.vision_params`: `torch.save`d state dicts in
+    HF, openai or the port's layout) and the BPE merges (`clip.bpe_path`),
+    on the model's device; else the debug encoder where `allow_debug`.
+
+    The towers' activation follows the variant: exact GELU for a model
+    with the text-style fusion (inshop_laion_clip.yaml:52's laion towers),
+    QuickGELU (openai's) otherwise. JAX builds both with QuickGELU for
+    every variant (`upgpt_tpu/cli.py:38-42`), the reference fault R6."""
     clip_cfg = cfg.get("clip") or {}
-    if clip_cfg.get("text_params"):
-        raise NotImplementedError(
-            "clip.text_params: the CLIP conditioning encoder is not ported "
-            "yet (ROADMAP §1 item 7); serve with --debug-encoder and no "
-            "clip weights")
+    if clip_cfg.get("text_params") and clip_cfg.get("bpe_path"):
+        from upgpt_torch.inference.encoders import CLIPConditioningEncoder
+
+        if not clip_cfg.get("vision_params"):
+            raise SystemExit("clip.vision_params: the style tower's weights "
+                             "are required beside clip.text_params")
+        return CLIPConditioningEncoder.from_files(
+            clip_cfg["text_params"], clip_cfg["vision_params"],
+            clip_cfg["bpe_path"], quick_gelu=model.cond_fusion is None,
+            device=model.device)
     if not allow_debug:
         raise SystemExit(
             "no CLIP weights configured (clip.text_params / clip.bpe_path). "
@@ -63,27 +79,27 @@ def _build_cond_encoder(cfg, model, allow_debug=False):
 def _refuse_unported(args) -> None:
     if getattr(args, "multihost", False):
         raise SystemExit("--multihost: multi-host training waits on "
-                         "torch.distributed (ROADMAP §1 item 6)")
+                         "torch.distributed (ROADMAP §1 item 10)")
     if (getattr(args, "dp", 1) or 1) > 1:
         raise SystemExit("--dp > 1: data-parallel serving waits on "
-                         "torch.distributed (ROADMAP §1 item 6)")
+                         "torch.distributed (ROADMAP §1 item 10)")
     if (getattr(args, "tp", 1) or 1) > 1:
         raise SystemExit("--tp > 1: tensor-parallel serving waits on "
-                         "torch.distributed (ROADMAP §1 item 6)")
+                         "torch.distributed (ROADMAP §1 item 10)")
     for ckpt in (getattr(args, "ckpt", None),
                  getattr(args, "upscale_ckpt", None)):
         if ckpt and Path(str(Path(ckpt).absolute()) + ".distill.json"
                          ).exists():
             raise SystemExit(f"{ckpt}: a distilled-student sidecar; "
                              f"distillation is not ported (ROADMAP §1 "
-                             f"item 9)")
+                             f"item 8)")
 
 
 def _loaders(cfg, batch_size, compact=False, train_transform=None):
     """The config's data splits as loaders: `train` shuffled through the
     prefetching thread loader (`data.loader: process` selects worker
     processes), the others in order. One process: multi-process slicing
-    waits on DDP (ROADMAP §1 item 6)."""
+    waits on DDP (ROADMAP §1 item 10)."""
     from upgpt_torch.data.deepfashion import (
         DataLoader, PrefetchDataLoader, ProcessDataLoader,
     )
@@ -171,7 +187,7 @@ def cmd_sample(cfg, args):
     from PIL import Image
 
     from upgpt_torch.inference.pipeline import GenerationPipeline
-    from upgpt_torch.training.trainer import Trainer
+    from upgpt_torch.training.trainer import Trainer, to_device
 
     _refuse_unported(args)
     model = _load_model(cfg["model"], args.ckpt)
@@ -190,9 +206,8 @@ def cmd_sample(cfg, args):
               or loaders["train"])
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    batch = enc.encode_batch(next(loader.epoch(0)))
-    batch = {k: torch.as_tensor(np.asarray(batch[k])).to(model.device)
-             for k in Trainer._GENERATE if k in batch}
+    batch = to_device(enc.encode_batch(next(loader.epoch(0))),
+                      Trainer._GENERATE, model.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     imgs = pipe.generate(batch, gen).float().cpu().numpy()
     for i, img in enumerate(imgs):

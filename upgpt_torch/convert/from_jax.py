@@ -9,6 +9,14 @@ so a flattened JAX key maps to a port key by joining with "." instead of
 - conv `kernel` (kH, kW, I, O)        -> Conv2d `weight` (O, I, kH, kW)
 - Dense `kernel` (in, out)            -> Linear `weight` (out, in)
 - GroupNorm/LayerNorm `scale`/`bias`  -> `weight`/`bias`
+- Embed `embedding` (V, D)            -> Embedding `weight` (V, D)
+- the CLIP towers' bare parameters (`position_embedding`,
+  `class_embedding`, `text_projection`, `visual_projection`) keep their
+  names and layout.
+
+The CLIP towers (`models/clip.py`) and the text-style fusion
+(`cond_fusion.cross_att`) carry JAX's names too, so their trees load the
+same way.
 
 The bridge is strict: a key the module lacks, a module key the tree lacks,
 or a shape that disagrees raises ValueError. It takes numpy arrays and
@@ -23,7 +31,10 @@ from typing import Dict, Iterable, Mapping
 import numpy as np
 import torch
 
-_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+         "embedding": "weight"}
+_BARE = ("position_embedding", "class_embedding", "text_projection",
+         "visual_projection")
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -40,6 +51,8 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def torch_key(jax_key: str) -> str:
     *path, leaf = jax_key.split("/")
+    if leaf in _BARE:
+        return ".".join(path + [leaf])
     if leaf not in _LEAF:
         raise ValueError(f"unknown parameter leaf {leaf!r} in {jax_key!r}")
     return ".".join(path + [_LEAF[leaf]])

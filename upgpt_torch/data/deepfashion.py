@@ -46,6 +46,10 @@ from upgpt_torch.data.transforms import (
     to_uint8,
 )
 
+# the name of the loaders' producer threads, and the prefix of the
+# prefetching loader's decode pool, so their threads can be told apart
+PRODUCER_THREAD = "upgpt-loader"
+
 STYLE_NAMES = (
     "face", "hair", "headwear", "background", "top",
     "outer", "bottom", "shoes", "accesories",
@@ -103,7 +107,9 @@ class DeepFashionPair:
         v/127.5-1 == v/255*2-1 and (v/255-mean)/std match the f32 pipeline
         bit-for-bit (the empty style slot is normalize(black) = uint8
         zeros). 4x less worker-IPC and host->device traffic."""
-        assert input_mask_type in ("mask", "smpl", "bbox")
+        if input_mask_type not in ("mask", "smpl", "bbox"):
+            raise ValueError(f"input_mask_type {input_mask_type!r}: expected "
+                             f"'mask', 'smpl' or 'bbox'")
         self.compact = compact
         self.root = Path(folder)
         self.image_root = self.root / image_dir
@@ -399,8 +405,12 @@ class DataLoader:
         # then loads only its disjoint slice of each global batch.
         # batch_size stays the GLOBAL batch size; each host yields
         # batch_size // process_count items per step.
-        assert 0 <= process_index < process_count, (process_index, process_count)
-        assert batch_size % process_count == 0, (batch_size, process_count)
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside "
+                             f"[0, {process_count})")
+        if batch_size % process_count:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{process_count} processes")
         self.process_index = process_index
         self.process_count = process_count
 
@@ -491,7 +501,9 @@ class PrefetchDataLoader(DataLoader):
 
         def producer():
             try:
-                with ThreadPoolExecutor(self.num_workers) as ex:
+                with ThreadPoolExecutor(
+                        self.num_workers,
+                        thread_name_prefix=f"{PRODUCER_THREAD}-decode") as ex:
                     for i in range(n_batches):
                         if stop.is_set():
                             return
@@ -503,7 +515,8 @@ class PrefetchDataLoader(DataLoader):
             except BaseException as e:  # propagate decode errors to consumer
                 q.put(e)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name=PRODUCER_THREAD,
+                             daemon=True)
         t.start()
         try:
             while True:
@@ -652,7 +665,8 @@ class ProcessDataLoader(DataLoader):
             except BaseException as e:  # surface worker errors in consumer
                 q.put(e)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name=PRODUCER_THREAD,
+                             daemon=True)
         t.start()
         try:
             while True:

@@ -8,6 +8,8 @@ It holds what `DeepFashionPair` reads, in the layout of the released tree
     smpl_256/pose<i>.jpg, pose<i>_mask.png  SMPL render (256x192) and its
                                             silhouette at `image_hw`
     smpl_256/pose<i>.p                      SMPL pickle (72 + 10 + 3)
+    smpl/pose<i>.jpg, pose<i>.p             the same render and pickle where
+                                            the 'smpl' mask type reads them
     segm_256/{MEN,WOMEN}/<id>_1_front_segm.png  DeepFashion-MM labels
     styles/s<i>/<slot>.jpg                  224x224 crops, some slots empty
     captions.json, map.csv, pairs-<split>.csv
@@ -21,6 +23,7 @@ from __future__ import annotations
 import csv
 import json
 import pickle
+import shutil
 from pathlib import Path
 from typing import Dict, Mapping, Tuple
 
@@ -69,6 +72,9 @@ def _person(rng, hw, i: int, root: Path, gender: str) -> Dict[str, str]:
             "pred_betas": rng.normal(size=(1, 10)).astype(np.float32),
             "pred_camera": rng.normal(size=(3,)).astype(np.float32),
         }], f)
+    for ext in (".jpg", ".p"):
+        shutil.copyfile(root / "smpl_256" / f"{pose}{ext}",
+                        root / "smpl" / f"{pose}{ext}")
 
     # labels: background 0, top 1, pants 5, hair 13, face 14, skin 15
     segm = np.zeros((h, w), np.uint8)
@@ -99,7 +105,8 @@ def write_fashion_tree(root, splits: Mapping[str, Tuple[int, int]],
     source (two at least). Returns the paths a `DeepFashionPair` takes:
     `folder`, `data_file` and, per split, its pair file."""
     root = Path(root)
-    (root / "smpl_256").mkdir(parents=True, exist_ok=True)
+    for d in ("smpl_256", "smpl"):
+        (root / d).mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     rows, captions, out = [], {}, {"folder": str(root),
                                    "data_file": str(root / "map.csv")}

@@ -8,6 +8,7 @@ ddpm.py:1550-1577):
 
     cond = {
         "c_crossattn": (B, T, 768) context — text (77) | style (9) | pose (1),
+                       or with `cond_fusion` the fused text (77) | pose (1),
         "c_concat":    (B, h, w, Cc) latent-resolution channel concat,
         "cross_kv":    optional precompute_cross_kv output,
     }
@@ -29,6 +30,7 @@ import torch
 from torch import nn
 
 from upgpt_torch.diffusion.schedule import DiffusionSchedule
+from upgpt_torch.models.cond_fusion import TextStyleCrossAttention
 from upgpt_torch.models.pose import LinearProject
 from upgpt_torch.models.unet import UNetConfig, UNetModel
 from upgpt_torch.models.vae import AutoencoderConfig, AutoencoderKL
@@ -49,6 +51,13 @@ class LatentDiffusionConfig:
     latent_channels: int = 4
     pose_input_dim: Optional[int] = 85  # None: no pose stage
     context_dim: int = 768
+    # the cond_stage_key_2 route (inshop_laion_clip.yaml:12, 82): a
+    # TRAINABLE text-style CrossAttention fuses the style embeddings into
+    # the text tokens instead of concatenating them. None disables it;
+    # "image" / "text" is the reference's style_encode mode (modules.py:
+    # 306-316), which selects the embeddings the encoder feeds in: the
+    # fusion's math is the same
+    cond_fusion: Optional[str] = None
     l_simple_weight: float = 1.0
     original_elbo_weight: float = 0.0
 
@@ -83,6 +92,10 @@ class LatentDiffusion(nn.Module):
         self.vae = AutoencoderKL(config.vae)
         self.pose = (LinearProject(config.pose_input_dim, config.context_dim)
                      if config.pose_input_dim else None)
+        # the trainable fusion (modules.py:274-278): CrossAttention(768,
+        # 8 heads of 96), in the trainable set (reference ddpm.py:1501-1509)
+        self.cond_fusion = (TextStyleCrossAttention(dim=config.context_dim)
+                            if config.cond_fusion else None)
         self.schedule = DiffusionSchedule.create(
             timesteps=config.timesteps,
             beta_schedule=config.beta_schedule,
@@ -123,10 +136,19 @@ class LatentDiffusion(nn.Module):
                       style_emb: Optional[torch.Tensor] = None,
                       smpl: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token concat of text (77), styles (9) and pose (1)
-        (reference ddpm.py:733-739)."""
-        parts = [text_emb]
-        if style_emb is not None:
-            parts.append(style_emb)
+        (reference ddpm.py:733-739). With `cond_fusion` (the
+        cond_stage_key_2 route, ddpm.py:707-713) the styles are fused into
+        the text tokens by the trainable CrossAttention, and the context
+        is the fused text (77) and pose (1)."""
+        if self.cond_fusion is not None:
+            if style_emb is None:
+                raise ValueError("cond_fusion: the fused context needs "
+                                 "style_emb")
+            parts = [self.cond_fusion(text_emb.float(), style_emb.float())]
+        else:
+            parts = [text_emb]
+            if style_emb is not None:
+                parts.append(style_emb)
         if smpl is not None:
             if self.pose is None:
                 raise ValueError("this model variant has no pose stage")

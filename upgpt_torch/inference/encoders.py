@@ -1,11 +1,20 @@
 """Conditioning encoders: raw batch (txt strings, style images) ->
 embedding batch for LatentDiffusion.
 
-Port of `upgpt_tpu.inference.encoders` for the weightless path:
+Port of `upgpt_tpu.inference.encoders`. `CLIPConditioningEncoder` is the
+reference's frozen cond stages (encoders/modules.py): the text tower's
+77x768 last hidden state (FrozenCLIPEmbedder), the vision tower's pooled
+embedding of each of the 9 style slots (FrozenClipImageEmbedder2) and the
+pooled text feature for per-slot overrides (FrozenCLIPTextEmbedder,
+normalize=False at inference). Its towers run where they lie (the card in
+the CLI), frozen, in float32 as JAX's do, under `torch.no_grad()` (not
+inference mode: the trainable fusion saves the text states for its
+backward). Tokenisation is host Python and the style crops may arrive as
+uint8 (the compact transport), normalised on the device.
+
 `DebugConditioningEncoder` is a deterministic stand-in (seeded-hash
-embeddings, numpy only) so sampling and serving smoke runs work without
-CLIP weights. It is NOT output parity. The CLIP encoder
-(`CLIPConditioningEncoder`) is not ported yet (ROADMAP §1 item 7).
+embeddings, numpy only) so sampling, serving and training smoke runs work
+without CLIP weights. It is NOT output parity.
 """
 
 from __future__ import annotations
@@ -14,8 +23,117 @@ import hashlib
 from typing import Dict, Sequence
 
 import numpy as np
+import torch
 
+from upgpt_torch.data.tokenizer import CLIPTokenizer
 from upgpt_torch.data.transforms import CLIP_MEAN, CLIP_STD
+from upgpt_torch.models.clip import (
+    CLIPTextTower, CLIPVisionTower, StyleImageEncoder,
+)
+
+
+def _dequant_styles(imgs: torch.Tensor) -> torch.Tensor:
+    """uint8 style crops -> CLIP-normalised float32 on their device, with
+    the arithmetic of `transforms.clip_normalize_image` (exact for
+    uint8-sourced crops; the uint8 zero slot gives normalize(black), the
+    empty style). The divisor is a tensor: CUDA's division by a host scalar
+    multiplies by its reciprocal. Float crops pass through."""
+    if imgs.dtype != torch.uint8:
+        return imgs
+    dev = imgs.device
+    x = imgs.float() / torch.full((), 255.0, device=dev)
+    return ((x - torch.from_numpy(CLIP_MEAN).to(dev))
+            / torch.from_numpy(CLIP_STD).to(dev))
+
+
+class CLIPConditioningEncoder:
+    """Frozen CLIP text and style-image encoding on the towers' device.
+
+    `encode_batch` does both halves at once; the trainer splits them:
+    `tokenize_batch` on the host (the loader's producer thread) and
+    `encode_device` on the card, ahead of the step."""
+
+    def __init__(self, text_tower: CLIPTextTower,
+                 vision_tower: CLIPVisionTower, tokenizer: CLIPTokenizer):
+        self.tokenizer = tokenizer
+        self.text_tower = text_tower.eval().requires_grad_(False)
+        self.style_encoder = StyleImageEncoder(
+            vision_tower.config, vision_tower).eval().requires_grad_(False)
+
+    @classmethod
+    def from_files(cls, text_params: str, vision_params: str, bpe_path: str,
+                   quick_gelu: bool = True, device="cuda"
+                   ) -> "CLIPConditioningEncoder":
+        """Towers from `torch.save`d state dicts (HF, openai or the port's
+        layout, told apart by their keys; one openai CLIP file may serve
+        both) and the BPE merges file."""
+        from upgpt_torch.convert.clip_weights import (
+            text_tower_from_state_dict, vision_tower_from_state_dict,
+        )
+
+        load = lambda p: torch.load(p, map_location="cpu",  # noqa: E731
+                                    weights_only=True)
+        return cls(text_tower_from_state_dict(load(text_params), quick_gelu,
+                                              device),
+                   vision_tower_from_state_dict(load(vision_params),
+                                                quick_gelu, device),
+                   CLIPTokenizer(bpe_path=bpe_path))
+
+    @property
+    def device(self) -> torch.device:
+        return self.text_tower.position_embedding.device
+
+    def tokenize(self, texts: Sequence[str]) -> np.ndarray:
+        """(B, 77) int32 token ids, on the host."""
+        return self.tokenizer(list(texts))
+
+    def _ids(self, texts) -> torch.Tensor:
+        return torch.from_numpy(self.tokenize(texts)).to(self.device)
+
+    @torch.no_grad()
+    def text_hidden(self, texts: Sequence[str]) -> torch.Tensor:
+        """(B, 77, D) float32 last hidden states."""
+        return self.text_tower(self._ids(texts))[0]
+
+    @torch.no_grad()
+    def text_pooled(self, texts: Sequence[str]) -> torch.Tensor:
+        """(B, projection_dim) float32 pooled, projected text features."""
+        return self.text_tower(self._ids(texts))[1]
+
+    @torch.no_grad()
+    def style_embeddings(self, styles) -> torch.Tensor:
+        """(B, 9, H, W, 3) crops, CLIP-normalised float or uint8 ->
+        (B, 9, projection_dim) float32."""
+        styles = torch.as_tensor(np.asarray(styles) if not isinstance(
+            styles, torch.Tensor) else styles).to(self.device)
+        return self.style_encoder(_dequant_styles(styles))
+
+    def encode_batch(self, batch: Dict) -> Dict:
+        out = dict(batch)
+        out["text_emb"] = self.text_hidden(batch["txt"])
+        if "styles" in batch:
+            out["style_emb"] = self.style_embeddings(batch["styles"])
+        return out
+
+    def tokenize_batch(self, batch: Dict) -> Dict:
+        """The host half: `txt` -> `token_ids` (B, 77) int32."""
+        out = dict(batch)
+        out["token_ids"] = self.tokenize(batch["txt"])
+        return out
+
+    @torch.no_grad()
+    def encode_device(self, batch: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """The device half, on tensors already on the towers' device:
+        `token_ids` -> `text_emb`, `styles` -> `style_emb`; both inputs
+        dropped."""
+        out = {k: v for k, v in batch.items()
+               if k not in ("token_ids", "styles")}
+        out["text_emb"] = self.text_tower(batch["token_ids"])[0]
+        if "styles" in batch:
+            out["style_emb"] = self.style_encoder(
+                _dequant_styles(batch["styles"]))
+        return out
 
 
 class DebugConditioningEncoder:

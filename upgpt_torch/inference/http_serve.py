@@ -58,6 +58,15 @@ def default_person_mask(h: int, w: int) -> np.ndarray:
     return m
 
 
+def _host(emb) -> np.ndarray:
+    """An encoder's embeddings as a float32 host array: the debug encoder's
+    are host arrays, the CLIP encoder's tensors on its towers' device
+    (requests are packed on the host)."""
+    if hasattr(emb, "detach"):
+        emb = emb.detach().float().cpu().numpy()
+    return np.asarray(emb, np.float32)
+
+
 def _png_b64(img: np.ndarray) -> str:
     if img.dtype != np.uint8:
         img = (np.clip((img.astype(np.float32) + 1) / 2, 0, 1) * 255
@@ -89,7 +98,7 @@ class RequestBuilder:
         if "text_emb" in req:
             cond["text_emb"] = np.asarray(req["text_emb"], np.float32)
         elif self.encoder is not None:
-            cond["text_emb"] = np.asarray(
+            cond["text_emb"] = _host(
                 self.encoder.text_hidden([req.get("txt", "")]))[0]
         else:
             raise ValueError("text_emb required (no conditioning encoder)")
@@ -148,9 +157,8 @@ class RequestBuilder:
         out = np.array(style_emb, np.float32)
         slots = [i for i, t in enumerate(style_texts) if t]
         if slots:
-            pooled = np.asarray(
-                self.encoder.text_pooled([style_texts[i] for i in slots]),
-                np.float32)
+            pooled = _host(
+                self.encoder.text_pooled([style_texts[i] for i in slots]))
             for j, i in enumerate(slots):
                 out[i] = pooled[j]
         return out

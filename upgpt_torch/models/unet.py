@@ -22,7 +22,9 @@ JAX ResBlock's fused level 1); `use_fused_resblock` (level 2, over level 1)
 routes each ResBlock half-step GroupNorm+SiLU+conv that
 `fused_resblock_qualifies` admits to the CUDA half-step kernel and runs the
 others plain, as the JAX ResBlock does; the out head still follows
-`use_fused_groupnorm`.
+`use_fused_groupnorm`. `use_checkpoint` recomputes every ResBlock and
+SpatialTransformer in the backward (`torch.utils.checkpoint`,
+non-reentrant), so their kernels launch again there.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from upgpt_torch.models.layers import Conv2d, Dense, Norm
+from upgpt_torch.ops.attention import multi_head_attention
 from upgpt_torch.ops.basic import (
     group_norm, nearest_upsample_2x, silu, timestep_embedding,
 )
@@ -70,6 +74,10 @@ class UNetConfig:
     # the CUDA SpatialTransformer kernel (ops/fused_transformer.py), per
     # qualifying shape
     use_fused_transformer: bool = False
+    # rematerialisation (the JAX config's nn.remat over ResBlocks and
+    # SpatialTransformers): under autograd each of them keeps only its
+    # inputs and runs its forward again in the backward
+    use_checkpoint: bool = False
     dtype: Optional[torch.dtype] = None  # compute dtype; None: the params'
 
     @classmethod
@@ -156,14 +164,28 @@ class ResBlock(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Parameter holder: bias-free to_q/to_k/to_v, to_out with bias."""
+    """Bias-free to_q/to_k/to_v and to_out with bias (reference
+    attention.py:152-193). Inside a SpatialTransformer it only holds the
+    parameters (the block computes them); with `num_heads` it also runs
+    plain: q from x, k/v from `context` (x where None), the fp32-softmax
+    core of `ops/attention.py`, then to_out, in `dtype` (the JAX
+    CrossAttention with use_flash=False)."""
 
-    def __init__(self, query_dim: int, context_dim: int, inner: int):
+    def __init__(self, query_dim: int, context_dim: int, inner: int,
+                 num_heads: Optional[int] = None, dtype=None):
         super().__init__()
-        self.to_q = Dense(query_dim, inner, bias=False)
-        self.to_k = Dense(context_dim, inner, bias=False)
-        self.to_v = Dense(context_dim, inner, bias=False)
-        self.to_out = Dense(inner, query_dim)
+        self.num_heads = num_heads
+        self.to_q = Dense(query_dim, inner, bias=False, dtype=dtype)
+        self.to_k = Dense(context_dim, inner, bias=False, dtype=dtype)
+        self.to_v = Dense(context_dim, inner, bias=False, dtype=dtype)
+        self.to_out = Dense(inner, query_dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        context = x if context is None else context
+        out = multi_head_attention(self.to_q(x), self.to_k(context),
+                                   self.to_v(context), self.num_heads)
+        return self.to_out(out)
 
 
 class FeedForward(nn.Module):
@@ -358,12 +380,19 @@ class UNetModel(nn.Module):
             context = context.to(comp)
         h = self.conv_in(x.to(comp))
         hs = [h]
+        # JAX's nn.remat over the same two modules; outside autograd there
+        # is no backward to recompute for
+        remat = cfg.use_checkpoint and torch.is_grad_enabled()
         for kind, name in self._plan:
             if kind == "res":
-                h = getattr(self, name)(h, emb)
+                mod = getattr(self, name)
+                h = (checkpoint(mod, h, emb, use_reentrant=False) if remat
+                     else mod(h, emb))
             elif kind == "attn":
                 kv = None if cross_kv is None else cross_kv.get(name)
-                h = getattr(self, name)(h, context, kv=kv)
+                mod = getattr(self, name)
+                h = (checkpoint(mod, h, context, kv=kv, use_reentrant=False)
+                     if remat else mod(h, context, kv=kv))
             elif kind == "call":
                 h = getattr(self, name)(h)
             elif kind == "push":

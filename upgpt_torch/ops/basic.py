@@ -9,6 +9,8 @@ Port of `upgpt_tpu.ops.basic`:
 - `nearest_upsample_2x`: F.interpolate(scale_factor=2, mode="nearest").
 - `asymmetric_pad_hw`: the VAE downsample's (0, 1, 0, 1) zero pad
   (model.py:60-79).
+- `normalize_to_clip`: [-1, 1] images to CLIP's normalised pixels
+  (encoders/modules.py:218-230).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from upgpt_torch.data.transforms import CLIP_MEAN, CLIP_STD
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -72,3 +76,14 @@ def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
 def asymmetric_pad_hw(x: torch.Tensor) -> torch.Tensor:
     """Pad NHWC with (top 0, bottom 1, left 0, right 1) zeros."""
     return F.pad(x, (0, 0, 0, 1, 0, 1))
+
+
+def normalize_to_clip(x: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Map NHWC images in [-1, 1] to CLIP's normalised pixel space:
+    (x + 1) / 2, then the per-channel CLIP mean and std, in float32
+    (FrozenClipImageEmbedder.preprocess, reference
+    encoders/modules.py:218-230)."""
+    x = (x.float() + 1.0) / 2.0
+    return ((x - torch.from_numpy(CLIP_MEAN).to(x.device))
+            / torch.from_numpy(CLIP_STD).to(x.device)).to(out_dtype)

@@ -3,7 +3,8 @@
 Port of `upgpt_tpu.training.train_state` (reference ddpm.py:1501-1538):
 AdamW with betas 0.9/0.999, eps 1e-8 and weight decay 0.01 on every
 trainable parameter, the base LR times a per-step multiplier, and a LitEma
-shadow, over the trainable set {U-Net, pose LinearProject}. The VAE is
+shadow, over the trainable set {U-Net, pose LinearProject, and the
+text-style fusion where the model has one}. The VAE is
 frozen and stays out of the optimizer.
 
 AdamW is `torch.optim.AdamW` with its LR set before every step to
@@ -27,7 +28,9 @@ weight decay + LitEma update (`create_fused_train_state`): the same
 arithmetic, float32 math over float32 or bfloat16 moments and shadow
 (`moment_dtype`), cast on store, here as a chain of foreach ops over all
 parameters (XLA fuses JAX's into one pass per leaf). It does not compose
-with accumulation, as in JAX.
+with accumulation, as in JAX. Its EMA shadow is float32 whatever
+`moment_dtype` is: JAX's takes bfloat16 with bf16 moments, and a bf16
+shadow freezes at decay 0.9999 (the reference fault R1, ROADMAP.md §3).
 
 The steps run where the model lies. Randomness comes from one
 `torch.Generator` (the draws of `LatentDiffusion.training_draws`), or from
@@ -117,9 +120,8 @@ class TrainState:
 class FusedTrainState:
     """AdamW + bias correction + decoupled weight decay + the LitEma shadow
     as JAX's `FusedTrainState` computes them, in float32 math stored in
-    the moments' dtype, as foreach ops over all parameters. The shadow
-    takes `moment_dtype` when that is bfloat16, else the parameters'
-    dtype, as in JAX."""
+    the moments' dtype, as foreach ops over all parameters. The shadow is
+    float32 for every `moment_dtype`, as `training/ema.py` keeps it."""
 
     step: int
     names: List[str]
@@ -195,9 +197,11 @@ def scaled_learning_rate(base_lr: float, batch_size: int, n_devices: int,
 
 
 def trainable_parameters(model: LatentDiffusion):
-    """(name, parameter) of the U-Net and the pose stage, in model order."""
+    """(name, parameter) of the U-Net, the pose stage and the text-style
+    fusion (`cond_fusion`, reference ddpm.py:1501-1509 with
+    cond_stage_trainable), in model order."""
     return [(n, p) for n, p in model.named_parameters()
-            if n.startswith(("unet.", "pose."))]
+            if n.startswith(("unet.", "pose.", "cond_fusion."))]
 
 
 def _default_schedule():
@@ -243,13 +247,10 @@ def create_fused_train_state(
     params = [p for _, p in named]
     zeros = [torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
              for p in params]
-    shadow_dtype = None if moment_dtype == torch.float32 else moment_dtype
     return FusedTrainState(
         step=0, names=[n for n, _ in named], params=params, mu=zeros,
         nu=[z.clone() for z in zeros],
-        ema=EmaState(shadow=[p.detach().to(shadow_dtype or p.dtype,
-                                           copy=True) for p in params],
-                     num_updates=0, decay=ema_decay) if use_ema else None,
+        ema=ema_init(params, ema_decay) if use_ema else None,
         learning_rate=learning_rate,
         scheduler=scheduler or _default_schedule(),
         weight_decay=weight_decay)

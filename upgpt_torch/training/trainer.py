@@ -30,7 +30,14 @@ lives on the host, so the loop makes no per-step sync; metrics are read
 pinned memory on a side stream, one batch ahead (`transfer_prefetch`), and
 the compute stream waits on the copy's event.
 
-One card, no mesh: data parallelism waits on DDP (ROADMAP §1 item 6).
+With a CLIP encoder the conditioning encode is split: the loader's
+producer thread tokenises (`host_encode`), the token ids and the style
+crops (uint8 in the compact transport) cross to the card, and the towers
+run there on the same side stream, ahead of the step, whose stream waits
+on the event recorded after them. The embeddings never return to the host.
+The debug encoder's embeddings are made on the host, as before.
+
+One card, no mesh: data parallelism waits on DDP (ROADMAP §1 item 10).
 """
 
 from __future__ import annotations
@@ -160,6 +167,14 @@ def transfer_prefetch(raw_iter, to_device, depth: int = 2):
                 break
 
 
+def to_device(batch: Dict, keys, device) -> Dict[str, torch.Tensor]:
+    """The `keys` of a batch (host arrays or tensors anywhere) as tensors
+    on `device`."""
+    return {k: (batch[k] if isinstance(batch[k], torch.Tensor)
+                else torch.as_tensor(np.asarray(batch[k]))).to(device)
+            for k in keys if k in batch}
+
+
 def step_seed(seed: int, step: int) -> int:
     """The seed of step `step`'s draws (JAX's fold_in(PRNGKey(seed), step))."""
     return (seed * 0x9E3779B97F4A7C15 + step) % 2**63
@@ -211,6 +226,8 @@ class Trainer:
              "loss_w")
     # the keys a sampling pipeline reads
     _GENERATE = ("text_emb", "style_emb", "smpl", "person_mask")
+    # what a CLIP encoder's towers read on the card
+    _TO_ENCODE = ("token_ids", "styles")
 
     def __init__(self, model: LatentDiffusion, config: TrainerConfig,
                  cond_encoder):
@@ -423,9 +440,7 @@ class Trainer:
         strips = {k: np.asarray(batch[k])
                   for k in ("src_image", "smpl_image", "styles")
                   if k in batch}
-        dev = self.model.device
-        gen_batch = {k: torch.as_tensor(np.asarray(batch[k])).to(dev)
-                     for k in self._GENERATE if k in batch}
+        gen_batch = to_device(batch, self._GENERATE, self.model.device)
         pipe = GenerationPipeline(
             self.model, num_steps=self.config.image_log_ddim_steps, eta=1.0)
         n_prog = self.config.image_log_progressive_frames
@@ -489,34 +504,51 @@ class Trainer:
     # ------------- the loop -------------
 
     def host_encode(self, raw: Dict) -> Dict:
-        """Host-side batch post-processing: conditioning encode and
-        transport pack. The train loader runs it as its `batch_transform`,
-        in its producer thread, so it overlaps the step."""
-        batch = self.cond_encoder.encode_batch(raw)
-        batch = {k: v for k, v in batch.items() if k in self._KEEP}
+        """Host-side batch post-processing: the conditioning encode's host
+        half (a CLIP encoder tokenises; the debug encoder makes the
+        embeddings) and the transport pack. The train loader runs it as its
+        `batch_transform`, in its producer thread, so it overlaps the
+        step."""
+        enc = self.cond_encoder
+        keep = self._KEEP
+        if hasattr(enc, "encode_device"):
+            batch = enc.tokenize_batch(raw)
+            keep = keep + self._TO_ENCODE
+        else:
+            batch = enc.encode_batch(raw)
+        batch = {k: v for k, v in batch.items() if k in keep}
         if self.config.compact_transport:
             batch = encode_transport(batch, self._transport_memo)
         return batch
 
     def _device_batch(self, raw: Dict):
-        """An encoded batch on the card: (tensors, copy event). On a CUDA
-        card each array crosses from pinned memory on a side stream."""
-        if "text_emb" not in raw:  # not pre-encoded by the loader
-            raw = self.host_encode(raw)
+        """An encoded batch on the card: (tensors, event). On a CUDA card
+        each array crosses from pinned memory on a side stream, where a
+        CLIP encoder's towers then run on it."""
+        if "text_emb" not in raw and "token_ids" not in raw:
+            raw = self.host_encode(raw)  # not pre-encoded by the loader
         host = {k: torch.as_tensor(np.asarray(v)) if not isinstance(
                     v, torch.Tensor) else v
-                for k, v in raw.items() if k in self._KEEP}
+                for k, v in raw.items() if k in self._KEEP + self._TO_ENCODE}
         dev = self.model.device
         if dev.type != "cuda":
-            return {k: v.to(dev) for k, v in host.items()}, None
+            return self._encode({k: v.to(dev) for k, v in host.items()}), None
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(dev)
         with torch.cuda.stream(self._copy_stream):
-            out = {k: v.pin_memory().to(dev, non_blocking=True)
-                   for k, v in host.items()}
+            out = self._encode({k: v.pin_memory().to(dev, non_blocking=True)
+                                for k, v in host.items()})
             event = torch.cuda.Event()
             event.record(self._copy_stream)
         return out, event
+
+    def _encode(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """The device half of the conditioning encode, where the batch
+        carries token ids (a CLIP encoder), on the current stream."""
+        if "token_ids" in batch:
+            batch = self.cond_encoder.encode_device(batch)
+        return {k: v for k, v in batch.items() if k in self._KEEP}
 
     @staticmethod
     def _ready(item) -> Dict[str, torch.Tensor]:

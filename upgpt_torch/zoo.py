@@ -7,6 +7,7 @@ the upscale stage of the 256->512 chain and the CI geometries:
 |--------------|----------|---------------|--------------------|-------------|
 | pt_256       | 32x24x4  | bbox mask 1ch | 77 txt + 9 sty + 1 | kl-f8       |
 | interp_256   | 32x24x4  | bbox mask 1ch | same               | kl-f8       |
+| inshop_laion | 32x24x4  | smpl mask 1ch | 77 fused txt + 1   | kl-f8       |
 | mm_512       | 64x48x4  | smpl mask 1ch | same               | kl-f8 512px |
 | upscale      | 128x96x3 | lr image 3ch  | 77 txt + 9 sty     | kl-f4       |
 | tiny         | 32x24x4  | mask 1ch      | 77 txt + 9 sty + 1 | tiny kl-f8  |
@@ -37,6 +38,10 @@ are off. The training benchmark turns on `use_fused_groupnorm`; the
                            use_fused_vae_groupnorm=True)
 
 On CPU tensors every kernel runs its plain version.
+
+`use_checkpoint` is the configs' rematerialisation switch (the
+inshop_laion config sets it): `torch.utils.checkpoint` over every ResBlock
+and SpatialTransformer, whose kernels then launch again in the backward.
 
 The model is built on the CUDA card unless the caller asks for another
 device; without a card that raises.
@@ -89,6 +94,14 @@ def _pt_256(comp, kernels) -> LatentDiffusionConfig:
 
 def _interp_256(comp, kernels) -> LatentDiffusionConfig:
     return _pt_256(comp, kernels)  # same graph; loss weights are data-side
+
+
+def _inshop_laion(comp, kernels) -> LatentDiffusionConfig:
+    # configs/deepfashion/inshop_laion_clip.yaml: the interp geometry with
+    # the cond_stage_key_2 route, a TRAINABLE text-style CrossAttention over
+    # laion-CLIP embeddings (exact-GELU towers), an smpl RPM mask, and a
+    # context of the fused text (77) and the pose token
+    return dataclasses.replace(_pt_256(comp, kernels), cond_fusion="image")
 
 
 def _mm_512(comp, kernels) -> LatentDiffusionConfig:
@@ -145,7 +158,8 @@ def _tiny_upscale(comp, kernels) -> LatentDiffusionConfig:
 
 
 _BUILDERS = {"pt_256": _pt_256, "interp_256": _interp_256,
-             "mm_512": _mm_512, "upscale": _upscale, "tiny": _tiny,
+             "inshop_laion": _inshop_laion, "mm_512": _mm_512,
+             "upscale": _upscale, "tiny": _tiny,
              "tiny_upscale": _tiny_upscale}
 
 
@@ -168,15 +182,7 @@ def build_latent_diffusion(
 ) -> LatentDiffusion:
     """Build a variant with freshly initialised weights in `param_dtype`
     (default: `dtype`), computing in `dtype`, on `device` (the CUDA card
-    unless the caller names another device).
-
-    `use_checkpoint` is the JAX configs' rematerialisation switch: False
-    builds the model as it is; True raises, since recomputation in the
-    backward belongs to the rest of training (ROADMAP §1 item 6)."""
-    if use_checkpoint:
-        raise NotImplementedError(
-            "use_checkpoint=True (rematerialisation) is not ported: it "
-            "belongs to the rest of training, ROADMAP §1 item 6")
+    unless the caller names another device)."""
     if variant not in _BUILDERS:
         raise KeyError(f"unknown variant {variant!r}; have {list(_BUILDERS)}")
     device = torch.device(device)
@@ -191,6 +197,8 @@ def build_latent_diffusion(
                "use_fused_resblock": use_fused_resblock,
                "use_fused_vae_groupnorm": use_fused_vae_groupnorm}
     cfg = _BUILDERS[variant](comp, kernels)
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, use_checkpoint=use_checkpoint))
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return LatentDiffusion(cfg).to(
