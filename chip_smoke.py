@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's sampling, training, 256->512 chain and serving
-paths on one NVIDIA GPU.
+"""Drive the PyTorch port's sampling, training, evaluation, 256->512 chain
+and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -51,6 +51,22 @@ CUDA toolkit. It
    model's structure; prints the loop's ms/step beside the bare step's,
    the card's busy share over the loop, whether the native JPEG core is
    live, and the training loader's img/s alone (thread and process);
+   evaluation: `python -m upgpt_torch.cli test` from that `last` (its
+   switches, bf16) over 24 distinct validation pairs, DDIM-50 at batch
+   12, the FID network from a pt_inception-layout file of seeded weights:
+   24 JPEGs in each of the seven groups, metrics.json finite, the run's
+   launches against the model's structure (per batch a sampling run, the
+   recon's encode and decode), its wall split into sampling, recon, dump
+   and metrics; `cli eval --dir` reproducing the numbers; the harness with
+   the rehearsal LPIPS on the card against the CPU (float32, TF32 off);
+   the FID network's img/s and LPIPS's pairs/s at batch 16; then `cli
+   train-vae` on `configs/autoencoder/kl_f8_deepfashion.yaml` over the
+   tree (full-width kl-f8 at 256x192, batch 12, bf16 over float32 masters,
+   the GAN terms from step 0, six steps): finite logs, d_weight above 0,
+   the VAE, the discriminator and its statistics moved, `last` read back,
+   no kernel launched; ms/step, the generator's and discriminator's
+   halves, peak memory; one step at full width in float32 on the card
+   against the CPU;
    CLIP: writes synthetic full-width state dicts (openai's ViT-L/14 CLIP,
    text 12 x 768 with QuickGELU and vision 24 x 1024; laion's text tower,
    exact GELU, in HF's layout) and a merges table, builds the towers
@@ -385,7 +401,8 @@ def kernel_checks(dev) -> dict:
     cases = {k: [] for k, _, _ in KERNELS}
     with torch.no_grad():
         # K1, ds1 and ds2: precomputed K/V at the sampling batch and at the
-        # training batch (the fit's image logs and `cli sample`), the
+        # training batch (the fit's image logs, `cli sample` and `cli
+        # test`), the
         # context projected in-kernel at the training batch; the same at
         # inshop_laion's 78-token context (its `cli sample` and its train
         # step, the latter also in the backward's recompute); the upscale
@@ -430,7 +447,8 @@ def kernel_checks(dev) -> dict:
                   f"only)", flush=True)
             cases["fused_transformer_block"].append(row)
         # flash forward: the VAE mid AttnBlock (decoder at the sampling
-        # batch, encoder at the training batch), the ds1 self-attention the
+        # batch, encoder at the training batch, also `cli test`'s decode
+        # and recon), the ds1 self-attention the
         # training backward recomputes, the upscale net's ds2
         # self-attention at the chain batch, and mm_512's decoder mid
         # AttnBlock and ds1 self-attention (T 3072) at the serving batch
@@ -1404,13 +1422,14 @@ LOADER_EPOCHS = 2
 
 
 class _StepProbe:
-    """Wraps the trainer module's `train_step` (in this script, not in the
-    package): each call's kernel launches (the counters before and after
-    it), its host start time and CUDA events around it, and a profiler
-    range named `fit_step`."""
+    """Wraps a module's function, the trainer's `train_step` or the VAE
+    trainer's steps (in this script, not in the package): each call's
+    kernel launches (the counters before and after it), its host start
+    time and CUDA events around it, and a profiler range named `label`."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, label: str = "fit_step"):
         self.fn = fn
+        self.label = label
         self.records = []
 
     def __call__(self, *args, **kwargs):
@@ -1418,7 +1437,7 @@ class _StepProbe:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
-        with torch.profiler.record_function("fit_step"):
+        with torch.profiler.record_function(self.label):
             start.record()
             out = self.fn(*args, **kwargs)
             end.record()
@@ -1427,6 +1446,12 @@ class _StepProbe:
                              "launches": {k: after[k] - before[k]
                                           for k in after}})
         return out
+
+    def ms(self) -> list:
+        """Each call's CUDA-event span, ms."""
+        torch.cuda.synchronize()
+        return [r["events"][0].elapsed_time(r["events"][1])
+                for r in self.records]
 
 
 def _fit_counts(model, per_step: dict, steps: int, evals: int,
@@ -1511,17 +1536,17 @@ def _time_loader(cls, ds, transform, **kw) -> dict:
             "workers": loader.num_workers}
 
 
-def fit_run(dev, card: str, bare_ms: list) -> dict:
+def fit_run(dev, card: str, bare_ms: list, work: str):
     """`python -m upgpt_torch.cli train` on interp_256 in-process: a
-    DeepFashion-shaped tree at the config's sizes, two epochs at batch 12
-    through `cli.main` (float32 masters, compact transport, the debug
-    encoder, the training kernels on), each step's launches held to
+    DeepFashion-shaped tree at the config's sizes under `work`, two epochs
+    at batch 12 through `cli.main` (float32 masters, compact transport, the
+    debug encoder, the training kernels on), each step's launches held to
     `expected_train_counts`; `train --resume` for a third epoch under the
     profiler; `sample` from the last checkpoint at batch 12, DDIM-50; then
     the training loader alone. Returns the paths `fit_run` (the two
-    training runs) and `sample_run`."""
+    training runs) and `sample_run`, and what the eval phase takes: the
+    config, its dotlist, the tree and the last checkpoint."""
     import shutil
-    import tempfile
 
     import numpy as np
     from PIL import Image
@@ -1538,9 +1563,6 @@ def fit_run(dev, card: str, bare_ms: list) -> dict:
 
     repo = os.path.dirname(os.path.abspath(__file__))
     config = os.path.join(repo, "configs", "deepfashion", "interp_256.yaml")
-    build_dir = os.path.join(repo, "upgpt_torch", "_build")
-    os.makedirs(build_dir, exist_ok=True)
-    work = tempfile.mkdtemp(dir=build_dir, prefix="fit-")
     free_gb = shutil.disk_usage(work).free / 1e9
     print(f"fit phase: {free_gb:.1f} GB free beside the checkpoints; native "
           f"JPEG core live: {native.available()}", flush=True)
@@ -1743,7 +1765,6 @@ def fit_run(dev, card: str, bare_ms: list) -> dict:
                   f" img/s", flush=True)
     finally:
         trainer_mod.train_step = probe.fn
-        shutil.rmtree(work, ignore_errors=True)
     fit = {"launches": {k: fit_counts[k] for k in fit_counts},
            "steps": len(probe.records), "ms_per_step": loop,
            "median_ms_per_step": fit_ms, "bare_median_ms_per_step": bare,
@@ -1755,7 +1776,487 @@ def fit_run(dev, card: str, bare_ms: list) -> dict:
            "losses": losses, "native_jpeg": native.available(),
            "loader": loaders, "free_disk_gb": free_gb}
     sample = {"launches": sample_counts, "wall_s": sample_wall}
-    return {"fit_run": fit, "sample_run": sample}
+    return {"fit_run": fit, "sample_run": sample}, {
+        "config": config, "dotlist": dotlist, "tree": tree,
+        "ckpt": os.path.join(logdir, "checkpoints", "last")}
+
+
+# the eval phase: `cli test` from the fit phase's `last` over 24 distinct
+# validation pairs of its tree (two batches of 12), DDIM-50, bf16, the FID
+# network from a pt_inception-layout file of seeded weights; then `cli eval`
+# on the dump, and the harness on the card against the CPU
+EVAL_IMAGES, EVAL_STEPS = 24, 50
+EVAL_GROUPS = ("samples", "gt", "recon", "src", "smpl", "concats", "styles")
+# `cli eval` on the same files and the same card: the metrics again, to a
+# relative 1e-6 (the same arithmetic; a looser bound would hide a harness
+# that reads other files)
+EVAL_REPRO_REL = 1e-6
+# the harness on the card against the CPU, float32 with TF32 off on both,
+# the same files and weights: per-image SSIM and MS-SSIM as absolute
+# differences (scores at most 1; the samples of random weights score near
+# 0, so a relative one would divide by ~0.01), LPIPS relative to the
+# CPU's, the Inception features' max|d| over max|ref|. Both sides differ
+# only in the order of float32 sums. Measured on an H100 (700 W): SSIM
+# 1.9e-5 and MS-SSIM 4.1e-5 relative at scores ~0.05 (~1e-6 absolute),
+# LPIPS 2.4e-7, features 8.1e-7, so each bound has a margin of 10x or
+# more.
+EVAL_SCORE_ABS = 1e-5
+EVAL_LPIPS_REL = 1e-5
+INCEPTION_FEATURE_REL = 1e-4
+EVAL_TIMED_BATCH, EVAL_TIMED_ITERS = 16, 10
+LPIPS_REHEARSAL_SEED = 5
+# the train-vae phase: `cli train-vae` on configs/autoencoder/
+# kl_f8_deepfashion.yaml over the fit tree's 32 training images at
+# 256x192 (two batches of 12 an epoch), full width, bf16 compute over
+# float32 masters, the GAN terms on from step 0
+VAE_CONFIG = os.path.join("configs", "autoencoder", "kl_f8_deepfashion.yaml")
+VAE_STEPS = 6
+# one vae_train_step at full width in float32 on a 64x64 batch of 2 with
+# the same weights and draws, the card against the CPU (TF32 off): each
+# log relative to the CPU's; the first step's gradients (from Adam's first
+# moment) and the parameters after the step, relative L2 over the VAE and
+# over the discriminator (with its statistics). Both sides differ only in
+# the order of float32 sums, but the normalisations' backward subtracts
+# nearly equal means: the discriminator's BatchNorm on batch statistics
+# under a hinge gradient that is almost constant cancels most, and Adam's
+# first step, about lr * sign(gradient), flips where an element's gradient
+# is near 0. Measured on an H100 (700 W): logs 3.6e-4 (the fake logits'
+# mean, near 0; the generator's at most 2.6e-6), gradients 2.3e-4 (VAE)
+# and 6.4e-3 (discriminator), parameters 9.9e-5 and 2.1e-4, so each bound
+# has a margin of 4x or more.
+VAE_CHECK_HW, VAE_CHECK_BATCH, VAE_CHECK_LR = 64, 2, 1e-4
+VAE_LOG_REL = 2e-3
+VAE_GRAD_REL_L2 = 1e-3
+VAE_DISC_GRAD_REL_L2 = 3e-2
+VAE_PARAM_REL_L2 = 5e-4
+VAE_DISC_PARAM_REL_L2 = 1e-3
+
+
+def _pt_inception_state_dict(seed: int) -> dict:
+    """Random weights in pt_inception's layout (torchvision's names, each
+    BasicConv2d's BatchNorm with running statistics, the 1008-way fc),
+    from a seed: the FID network's file where the published one is
+    absent. He-scaled kernels keep the activations near unit scale
+    through the 94 layers."""
+    from upgpt_torch.eval.inception import (
+        FID_FEATURE_DIM, FID_NUM_CLASSES, BasicConv2d, InceptionV3Features,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, mod in InceptionV3Features().named_modules():
+        if not isinstance(mod, BasicConv2d):
+            continue
+        shape = mod.conv.weight.shape
+        o, fan_in = shape[0], shape[1] * shape[2] * shape[3]
+        sd[f"{name}.conv.weight"] = (torch.randn(shape, generator=g)
+                                     * (2.0 / fan_in) ** 0.5)
+        sd[f"{name}.bn.weight"] = 0.5 + torch.rand(o, generator=g)
+        sd[f"{name}.bn.bias"] = 0.1 * torch.randn(o, generator=g)
+        sd[f"{name}.bn.running_mean"] = 0.1 * torch.randn(o, generator=g)
+        sd[f"{name}.bn.running_var"] = 0.5 + torch.rand(o, generator=g)
+    sd["fc.weight"] = 0.01 * torch.randn(FID_NUM_CLASSES, FID_FEATURE_DIM,
+                                         generator=g)
+    sd["fc.bias"] = torch.zeros(FID_NUM_CLASSES)
+    return sd
+
+
+def _distinct_pairs(pair_file: str, n: int, out: str) -> str:
+    """A pair file of `n` distinct (from, to) pairs over the people of
+    `pair_file`: the dump names each image by its pair, so a pair drawn
+    twice would overwrite its files."""
+    import csv
+
+    with open(pair_file, newline="") as f:
+        people = sorted({p for row in csv.DictReader(f)
+                         for p in (row["from"], row["to"])})
+    pairs = [(people[i], people[(i + k) % len(people)])
+             for k in range(1, len(people)) for i in range(len(people))]
+    if len(pairs) < n:
+        raise RuntimeError(f"{len(people)} people give {len(pairs)} pairs")
+    with open(out, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["from", "to"])
+        w.writerows(pairs[:n])
+    return out
+
+
+def expected_test_counts(model, b: int, steps: int, batches: int) -> dict:
+    """`cli test`'s launches: per batch, a sampling run (`steps` U-Net
+    evals and one decode) and the recon (an encode and a decode). The
+    encoder's GroupNorms stay plain: the eval phase keeps the VAE's
+    GroupNorm kernels off, as the fit's config does."""
+    from upgpt_torch.ops.flash_attention import flash_attention_qualifies
+
+    if model.vae.config.use_fused_groupnorm:
+        raise RuntimeError("expected_test_counts counts no VAE GroupNorm "
+                           "kernel in the encoder")
+    tk = context_tokens(model)
+    run = expected_sampling_counts(model, b, tk, steps)
+    decode = expected_sampling_counts(model, b, tk, 0)
+    h, w = model.config.latent_size
+    vcfg = model.vae.config
+    encode = int(vcfg.use_flash_attention and flash_attention_qualifies(
+        b, 1, h * w, h * w, vcfg.ch * vcfg.ch_mult[-1],
+        model.vae.encoder.conv_in.weight.dtype))
+    out = {k: batches * (run[k] + decode[k]) for k in run}
+    out["flash_attention"] += batches * encode
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _csv_rows(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def eval_run(dev, card: str, work: str, fit: dict) -> dict:
+    """`python -m upgpt_torch.cli test` in-process on interp_256 from the
+    fit phase's `last` (bf16 on the card, its kernel switches): 24
+    images, DDIM-50 at batch 12, the FID network from a pt_inception-layout
+    file of seeded weights; the dump's seven groups, metrics.json and the
+    run's launches against the model's structure; `cli eval` on the dump;
+    the harness with the rehearsal LPIPS on the card against the CPU; the
+    FID network's and LPIPS's throughput at batch 16."""
+    from upgpt_torch import cli
+    from upgpt_torch.config import instantiate_from_config, merge_configs
+    from upgpt_torch.eval.harness import evaluate_dirs
+    from upgpt_torch.eval.inception import (
+        InceptionFeatureFn, load_pt_inception,
+    )
+    from upgpt_torch.eval.lpips import rehearsal_lpips_fn
+
+    t_phase = time.perf_counter()
+    fid_path = os.path.join(work, "pt_inception.pth")
+    torch.save(_pt_inception_state_dict(91), fid_path)
+    pairs = _distinct_pairs(fit["tree"]["validation"], EVAL_IMAGES,
+                            os.path.join(work, "pairs-test.csv"))
+    dotlist = fit["dotlist"] + [f"data.test.params.pair_file=['{pairs}']"]
+    cfg = merge_configs([fit["config"]], dotlist)
+    with torch.device("meta"):
+        meta = instantiate_from_config(
+            {**cfg["model"], "params": {**cfg["model"]["params"],
+                                        "device": "meta"}})
+    expected = expected_test_counts(meta, TRAIN_BATCH, EVAL_STEPS,
+                                    EVAL_IMAGES // TRAIN_BATCH)
+    out = os.path.join(work, "results")
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = cli.main(["test", "--base", fit["config"], "--debug-encoder",
+                       "--ckpt", fit["ckpt"], "--steps", str(EVAL_STEPS),
+                       "--batch", str(TRAIN_BATCH), "--max-images",
+                       str(EVAL_IMAGES), "--fid-weights", fid_path,
+                       "--out", out] + dotlist)
+    torch.cuda.synchronize()
+    test_wall = time.perf_counter() - t0
+    counts = _read_counts()
+    for group in EVAL_GROUPS:
+        files = os.listdir(os.path.join(out, group))
+        if len(files) != EVAL_IMAGES or any(not f.endswith(".jpg")
+                                            for f in files):
+            raise RuntimeError(f"cli test wrote {len(files)} files to "
+                               f"{group}/: {sorted(files)[:4]}")
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)
+    if (metrics != result["metrics"] or metrics["n_images"] != EVAL_IMAGES
+            or not all(math.isfinite(metrics[k]) for k in
+                       ("ssim", "ms_ssim", "fid_inception", "fid"))):
+        raise RuntimeError(f"cli test metrics {metrics}")
+    if counts != expected or not (counts["fused_transformer_block"]
+                                  and counts["flash_attention"]):
+        raise RuntimeError(f"cli test launches {counts}, expected "
+                           f"{expected}")
+    sec = result["seconds"]
+    print(f"cli test interp_256 from checkpoints/last: {EVAL_IMAGES} images "
+          f"DDIM-{EVAL_STEPS} at batch {TRAIN_BATCH}, {test_wall:.3f} s of "
+          f"wall (model build and load included): sampling "
+          f"{sec['sampling']:.3f} s, recon {sec['recon']:.3f} s, dump "
+          f"{sec['dump']:.3f} s, metrics {sec['metrics']:.3f} s = "
+          f"{EVAL_IMAGES / sec['sampling']:.3f} img/s sampled; metrics "
+          f"{json.dumps(metrics)}; launches {counts} on {card}", flush=True)
+
+    # --- cli eval on the same dump ---
+    t0 = time.perf_counter()
+    again = cli.main(["eval", "--dir", out, "--fid-weights", fid_path])
+    eval_wall = time.perf_counter() - t0
+    repro = max(_rel(again[k], metrics[k]) for k in metrics)
+    if set(again) != set(metrics) or repro > EVAL_REPRO_REL:
+        raise RuntimeError(f"cli eval {again} against cli test {metrics}")
+    print(f"cli eval --dir: {eval_wall:.3f} s, metrics within {repro:.3e} "
+          f"of cli test's", flush=True)
+
+    # --- the harness on the card against the CPU ---
+    inception = load_pt_inception(fid_path)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        feats = []
+        fid_fn = InceptionFeatureFn(inception, d)
+
+        def features(x, fid_fn=fid_fn, feats=feats):
+            f = fid_fn(x)
+            feats.append(f.cpu())
+            return f
+
+        features.fid_name = "inception"
+        t0 = time.perf_counter()
+        m = evaluate_dirs(out, lpips_fn=rehearsal_lpips_fn(
+            LPIPS_REHEARSAL_SEED, d), fid_feature_fn=features, device=d)
+        runs[d.type] = {"metrics": m, "wall_s": time.perf_counter() - t0,
+                        "rows": _csv_rows(os.path.join(out, "metrics.csv")),
+                        "features": torch.cat(feats)}
+    pairs_rows = list(zip(runs["cuda"]["rows"], runs["cpu"]["rows"]))
+    card_cpu = {}
+    for key in ("ssim", "ms_ssim", "lpips"):
+        card_cpu[key] = max(_rel(float(a[key]), float(b[key]))
+                            for a, b in pairs_rows)
+        card_cpu[f"{key}_abs"] = max(abs(float(a[key]) - float(b[key]))
+                                     for a, b in pairs_rows)
+    fa, fb = runs["cuda"]["features"], runs["cpu"]["features"]
+    card_cpu["inception_features"] = ((fa - fb).abs().max()
+                                      / fb.abs().max()).item()
+    print(f"evaluate_dirs card vs CPU (float32, TF32 off, rehearsal LPIPS): "
+          f"per-image SSIM {card_cpu['ssim_abs']:.3e} ({card_cpu['ssim']:.3e}"
+          f" relative), MS-SSIM {card_cpu['ms_ssim_abs']:.3e} "
+          f"({card_cpu['ms_ssim']:.3e}), LPIPS {card_cpu['lpips']:.3e} "
+          f"relative, Inception features {card_cpu['inception_features']:.3e}"
+          f" of max|ref|; FID {runs['cuda']['metrics']['fid']:.6f} / "
+          f"{runs['cpu']['metrics']['fid']:.6f}; wall "
+          f"{runs['cuda']['wall_s']:.3f} s card, {runs['cpu']['wall_s']:.3f}"
+          f" s CPU", flush=True)
+    if (max(card_cpu["ssim_abs"], card_cpu["ms_ssim_abs"]) > EVAL_SCORE_ABS
+            or card_cpu["lpips"] > EVAL_LPIPS_REL
+            or card_cpu["inception_features"] > INCEPTION_FEATURE_REL):
+        raise RuntimeError(f"the harness on the card disagrees with the "
+                           f"CPU: {card_cpu}")
+
+    # --- the FID network and LPIPS alone, batch 16 at the eval crop ---
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.rand(EVAL_TIMED_BATCH, 256, 176, 3, generator=g,
+                   device=dev) * 2 - 1
+    y = torch.rand(EVAL_TIMED_BATCH, 256, 176, 3, generator=g,
+                   device=dev) * 2 - 1
+    fid_fn = InceptionFeatureFn(inception, dev)
+    lpips = rehearsal_lpips_fn(LPIPS_REHEARSAL_SEED, dev)
+    with torch.inference_mode():
+        inc_ms = _time_ms(lambda: fid_fn(x), EVAL_TIMED_ITERS)
+        lpips_ms = _time_ms(lambda: lpips(x, y), EVAL_TIMED_ITERS)
+    rates = {"inception_img_per_s": EVAL_TIMED_BATCH / inc_ms * 1e3,
+             "lpips_pairs_per_s": EVAL_TIMED_BATCH / lpips_ms * 1e3}
+    wall = time.perf_counter() - t_phase
+    print(f"FID InceptionV3 (float32, TF32 off) at batch "
+          f"{EVAL_TIMED_BATCH}, 256x176 -> 299x299: {inc_ms:.3f} ms = "
+          f"{rates['inception_img_per_s']:.1f} img/s; LPIPS VGG16: "
+          f"{lpips_ms:.3f} ms = {rates['lpips_pairs_per_s']:.1f} pairs/s; "
+          f"eval phase {wall:.3f} s of wall on {card}", flush=True)
+    return {"launches": counts, "wall_s": test_wall, "seconds": sec,
+            "metrics": metrics, "eval_wall_s": eval_wall,
+            "eval_repro_rel": repro, "card_vs_cpu": card_cpu,
+            "harness_wall_s": {k: r["wall_s"] for k, r in runs.items()},
+            "phase_wall_s": wall, **rates}
+
+
+def _moved(before: dict, after: dict) -> tuple:
+    """(tensors that changed, tensors) of two state dicts."""
+    n = sum(not torch.equal(before[k].cpu(), after[k].cpu()) for k in before)
+    return n, len(before)
+
+
+def _first_gradients(opt) -> list:
+    """The gradients of an Adam's first step, from its first moment
+    (exp_avg = (1 - beta1) g after one step), in parameter order."""
+    b1 = opt.param_groups[0]["betas"][0]
+    return [opt.state[p]["exp_avg"] / (1 - b1)
+            for p in opt.param_groups[0]["params"]]
+
+
+def vae_step_card_vs_cpu(dev) -> dict:
+    """One `vae_train_step` at full width (kl-f8 and the PatchGAN) in
+    float32 on a 64x64 batch of 2, the card against the CPU on the same
+    weights, images and posterior draws: each log's relative difference,
+    the gradients' relative L2 (VAE, discriminator) and the parameters'
+    after the step."""
+    from upgpt_torch.training.vae_loss import (
+        LPIPSWithDiscriminator, VAELossConfig,
+    )
+    from upgpt_torch.training.vae_trainer import (
+        make_vae_optimizers, vae_train_step,
+    )
+    from upgpt_torch.zoo import build_autoencoder
+
+    torch.manual_seed(7)
+    side = {}
+    for d in (torch.device("cpu"), dev):
+        vae = build_autoencoder("kl_f8", "float32", device=d)
+        loss = LPIPSWithDiscriminator(VAELossConfig(disc_start=0)).to(d)
+        if side:
+            vae.load_state_dict(side["cpu"]["vae"].state_dict())
+            loss.load_state_dict(side["cpu"]["loss"].state_dict())
+        side[d.type] = {"vae": vae, "loss": loss}
+    g = torch.Generator().manual_seed(8)
+    hw, b = VAE_CHECK_HW, VAE_CHECK_BATCH
+    x = torch.rand(b, hw, hw, 3, generator=g) * 2 - 1
+    noises = [torch.randn(b, hw // 8, hw // 8, 4, generator=g)
+              for _ in range(2)]
+    for d, s in side.items():
+        s["opts"] = make_vae_optimizers(VAE_CHECK_LR, s["vae"], s["loss"])
+        s["logs"] = vae_train_step(s["vae"], s["loss"], s["opts"], x.to(d),
+                                   0, noises=[n.to(d) for n in noises])
+    ref, got = side["cpu"], side["cuda"]
+    out = {"logs_rel": {k: _rel(float(got["logs"][k]),
+                                float(ref["logs"][k]))
+                        for k in ref["logs"]}}
+    for i, name in enumerate(("vae", "disc")):
+        out[f"{name}_grad_rel_l2"] = _rel_l2_lists(
+            [t.cpu() for t in _first_gradients(got["opts"][i])],
+            _first_gradients(ref["opts"][i]))
+    for name in ("vae", "loss"):
+        out[f"{name}_param_rel_l2"] = _rel_l2_lists(
+            [t.cpu() for t in got[name].state_dict().values()],
+            list(ref[name].state_dict().values()))
+    return out
+
+
+def train_vae_run(dev, card: str, work: str, tree: dict) -> dict:
+    """`python -m upgpt_torch.cli train-vae` in-process on
+    configs/autoencoder/kl_f8_deepfashion.yaml over the fit tree: six steps
+    at batch 12, 256x192, the GAN terms on from step 0; every log finite,
+    d_weight above 0, the VAE, the discriminator and its running
+    statistics moved from their seeded start, `last` read back into
+    `build_autoencoder`; the launches (none: flash attention and the
+    GroupNorm kernels stay off, as JAX's AutoencoderConfig has them); then
+    one step on the card against the CPU in float32."""
+    import numpy as np
+
+    from upgpt_torch import cli
+    from upgpt_torch.config import merge_configs
+    from upgpt_torch.training import vae_trainer
+    from upgpt_torch.zoo import build_autoencoder
+
+    t_phase = time.perf_counter()
+    logdir = os.path.join(work, "vae")
+    dotlist = [f"data.train.params.folder={tree['folder']}",
+               f"data.train.params.data_file={tree['data_file']}",
+               f"data.train.params.pair_file=['{tree['train']}']",
+               f"trainer.batch_size={TRAIN_BATCH}", "loss.disc_start=0",
+               f"trainer.max_steps={VAE_STEPS}", "trainer.log_every=1",
+               f"trainer.logdir={logdir}"]
+    spans = {name: _StepProbe(getattr(vae_trainer, name), name) for name in
+             ("vae_train_step", "generator_step", "discriminator_step")}
+    for name, span in spans.items():
+        setattr(vae_trainer, name, span)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        _reset_counts()
+        t0 = time.perf_counter()
+        result = cli.main(["train-vae"] + dotlist + ["--base", VAE_CONFIG])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the run's own peak, above what earlier phases left allocated
+        peak_gib = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        counts = _read_counts()
+        ms = {name: span.ms() for name, span in spans.items()}
+    finally:
+        for name, span in spans.items():
+            setattr(vae_trainer, name, span.fn)
+    logs = result["logs"]
+    if (result["step"] != VAE_STEPS or len(logs) != VAE_STEPS
+            or not all(math.isfinite(v) for line in logs
+                       for v in line.values())
+            or not all(line["gen/d_weight"] > 0 for line in logs)):
+        raise RuntimeError(f"train-vae ran {result['step']} steps, logs "
+                           f"{logs}")
+    if any(counts.values()):
+        raise RuntimeError(f"train-vae launched kernels: {counts}")
+    cfg = merge_configs([VAE_CONFIG], dotlist + ["model.params.device=cpu"])
+    vae0, loss0 = cli.build_vae_training(cfg)
+    vae1, loss1 = result["vae"], result["loss"]
+    state0, state1 = loss0.checkpoint_state(), loss1.checkpoint_state()
+    moved = {"vae": _moved(vae0.state_dict(), vae1.state_dict()),
+             "disc": _moved(state0["disc"], state1["disc"]),
+             "disc_stats": _moved(state0["disc_stats"],
+                                  state1["disc_stats"])}
+    if not all(n for n, _ in moved.values()):
+        raise RuntimeError(f"train-vae left weights where they started: "
+                           f"{moved}")
+    last = torch.load(os.path.join(logdir, "last"), map_location=dev,
+                      weights_only=True)
+    back = build_autoencoder("kl_f8", "bfloat16", device=dev)
+    back.load_state_dict(last["vae"], strict=True)
+    if (last["step"] != VAE_STEPS or not all(
+            torch.equal(a, b) for a, b in zip(back.state_dict().values(),
+                                              vae1.state_dict().values()))):
+        raise RuntimeError("train-vae's last does not hold the run's VAE")
+    loss0.load_checkpoint_state(last["loss"])
+    step_ms = float(np.median(ms["vae_train_step"][1:]))
+    g_ms = float(np.median(ms["generator_step"][1:]))
+    d_ms = float(np.median(ms["discriminator_step"][1:]))
+    loss_line = " ".join(f"{line['gen/total_loss']:.2f}" for line in logs)
+    weights = " ".join(f"{line['gen/d_weight']:.3g}" for line in logs)
+    print(f"cli train-vae kl-f8 256x192 batch {TRAIN_BATCH} (bf16 over "
+          f"float32 masters, disc_start 0): {VAE_STEPS} steps, "
+          f"{' '.join(f'{x:.2f}' for x in ms['vae_train_step'])} ms/step, "
+          f"median of steps 2-{VAE_STEPS} {step_ms:.2f} ms/step = "
+          f"{TRAIN_BATCH / step_ms * 1e3:.3f} img/s (generator {g_ms:.2f}, "
+          f"discriminator {d_ms:.2f}); peak {peak_gib:.3f} GiB above "
+          f"{resident / 2 ** 30:.3f} GiB resident before the run; losses "
+          f"{loss_line}; d_weight {weights}; tensors moved {moved}; "
+          f"{wall:.3f} s of wall on {card}",
+          flush=True)
+    check = vae_step_card_vs_cpu(dev)
+    logs_rel = {k: f"{v:.2e}" for k, v in check["logs_rel"].items()}
+    print(f"vae_train_step card vs CPU (kl-f8 full width, float32, "
+          f"{VAE_CHECK_HW}x{VAE_CHECK_HW} batch {VAE_CHECK_BATCH}): logs "
+          f"{json.dumps(logs_rel)} relative; gradients {check['vae_grad_rel_l2']:.3e} (VAE), "
+          f"{check['disc_grad_rel_l2']:.3e} (discriminator) relative L2; "
+          f"after the step {check['vae_param_rel_l2']:.3e} (VAE), "
+          f"{check['loss_param_rel_l2']:.3e} (discriminator and statistics)"
+          f"; phase {time.perf_counter() - t_phase:.3f} s of wall",
+          flush=True)
+    if (max(check["logs_rel"].values()) > VAE_LOG_REL
+            or check["vae_grad_rel_l2"] > VAE_GRAD_REL_L2
+            or check["disc_grad_rel_l2"] > VAE_DISC_GRAD_REL_L2
+            or check["vae_param_rel_l2"] > VAE_PARAM_REL_L2
+            or check["loss_param_rel_l2"] > VAE_DISC_PARAM_REL_L2):
+        raise RuntimeError(f"vae_train_step on the card disagrees with the "
+                           f"CPU: {check}")
+    return {"launches": counts, "steps": result["step"], "logs": logs,
+            "step_ms": ms["vae_train_step"], "median_ms_per_step": step_ms,
+            "generator_ms": g_ms, "discriminator_ms": d_ms,
+            "peak_gib": peak_gib, "resident_gib": resident / 2 ** 30,
+            "moved": moved, "wall_s": wall,
+            "card_vs_cpu": check,
+            "phase_wall_s": time.perf_counter() - t_phase}
+
+
+def fit_eval_and_vae_run(dev, card: str, bare_ms: list) -> dict:
+    """The fit phase, then the eval phase from its checkpoint and the
+    train-vae phase on its tree, in a temporary directory under
+    `upgpt_torch/_build` removed after."""
+    import shutil
+    import tempfile
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "upgpt_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(dir=build_dir, prefix="fit-")
+    try:
+        out, fit = fit_run(dev, card, bare_ms, work)
+        torch.cuda.empty_cache()
+        out["test_run"] = eval_run(dev, card, work, fit)
+        torch.cuda.empty_cache()
+        out["train_vae_run"] = train_vae_run(dev, card, work, fit["tree"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 # CLIP at full width: openai's ViT-L/14 CLIP (text 12 x 768 QuickGELU,
@@ -2763,8 +3264,9 @@ KERNELS = [
 def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     """One kernel's line: launches over one sampling run, one train step,
     one chain run, one UniPC run, the serving phase's batches, the fit
-    phase's two `cli train` runs (steps, validation, image logs) and its
-    `cli sample` run, and one micro_block run (there the
+    phase's two `cli train` runs (steps, validation, image logs), its
+    `cli sample` run, the eval phase's `cli test` and `cli train-vae`
+    runs, the laion phase's runs, and one micro_block run (there the
     wrapper's calls, the ones captured in its CUDA graphs included; the
     graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
@@ -2844,7 +3346,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     training = train_run(dev, card)
     torch.cuda.empty_cache()
-    fitted = fit_run(dev, card, training["ms_per_step"])
+    fitted = fit_eval_and_vae_run(dev, card, training["ms_per_step"])
     torch.cuda.empty_cache()
     laion = clip_and_laion_run(dev, card)
     torch.cuda.empty_cache()

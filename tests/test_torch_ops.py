@@ -243,7 +243,11 @@ def test_port_never_imports_jax():
         "          'upgpt_torch.inference.png', 'upgpt_torch.models.clip',\n"
         "          'upgpt_torch.models.cond_fusion',\n"
         "          'upgpt_torch.convert.clip_weights',\n"
-        "          'upgpt_torch.data.tokenizer'):\n"
+        "          'upgpt_torch.data.tokenizer',\n"
+        "          'upgpt_torch.eval.metrics', 'upgpt_torch.eval.lpips',\n"
+        "          'upgpt_torch.eval.inception', 'upgpt_torch.eval.harness',\n"
+        "          'upgpt_torch.training.vae_loss',\n"
+        "          'upgpt_torch.training.vae_trainer'):\n"
         "    assert m in mods, m\n"
         "print(len(mods))\n"
     )

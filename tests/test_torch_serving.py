@@ -364,9 +364,13 @@ def test_targets_resolve_to_the_port():
     assert (config.get_obj_from_str(
         "upgpt_tpu.data.deepfashion.DeepFashionPair") is DeepFashionPair)
     # a target the port does not have names itself
-    with pytest.raises(ImportError, match="upgpt_tpu.eval.harness"):
+    with pytest.raises(ImportError, match="upgpt_tpu.training.distill"):
         config.instantiate_from_config(
-            {"target": "upgpt_tpu.eval.harness.dump_test_results"})
+            {"target": "upgpt_tpu.training.distill.distill_step"})
+    from upgpt_torch.eval.harness import dump_test_results
+
+    assert (config.get_obj_from_str(
+        "upgpt_tpu.eval.harness.dump_test_results") is dump_test_results)
     with pytest.raises(ImportError, match="NoSuchBuilder"):
         config.get_obj_from_str("upgpt_tpu.zoo.NoSuchBuilder")
 

@@ -1,4 +1,5 @@
-"""The port's command line: `train`, `sample`, `serve` and `data-verify`.
+"""The port's command line: `train`, `sample`, `test`, `eval`,
+`train-vae`, `serve` and `data-verify`.
 
 Port of `upgpt_tpu.cli`'s subcommands of the same names. YAML configs merge
 left to right with key=value dotlist overrides, and models and datasets
@@ -13,6 +14,15 @@ the JAX package's `configs/deepfashion/*.yaml` drive the port unchanged:
     python -m upgpt_torch.cli sample \\
         --base configs/deepfashion/interp_256.yaml --debug-encoder \\
         --ckpt logs/interp_256/checkpoints/last --steps 50
+    python -m upgpt_torch.cli test \\
+        --base configs/deepfashion/interp_256.yaml --debug-encoder \\
+        --ckpt logs/interp_256/checkpoints/last --steps 50 \\
+        --fid-weights weights/pt_inception-2015-12-05.pth
+    python -m upgpt_torch.cli eval --dir results \\
+        --fid-weights weights/pt_inception-2015-12-05.pth
+    python -m upgpt_torch.cli train-vae \\
+        --base configs/autoencoder/kl_f8_deepfashion.yaml \\
+        data.train.params.folder=/data/deepfashion_inshop
     python -m upgpt_torch.cli serve --config configs/deepfashion/mm_512.yaml \\
         --ckpt weights/mm_512.pt --debug-encoder --batch 8 \\
         --sampler unipc --schedule karras --steps 8 sampling.eta=0.0
@@ -21,12 +31,16 @@ the JAX package's `configs/deepfashion/*.yaml` drive the port unchanged:
 (flax's `param_dtype`), from `trainer.seed`, and ships batches to the card
 in the compact transport by default. `sample` and `serve` take either
 checkpoint layout of `upgpt_torch.checkpoint` (a trainer checkpoint's EMA
-first) and cast the weights to bf16 on the card. `clip.*` in the config
+first) and cast the weights to bf16 on the card. `test` samples the test
+split (else validation), dumps the paired groups and scores them (SSIM,
+MS-SSIM, the FID with `--fid-weights`, a pt_inception .pth); `eval` scores
+a dump again. `train-vae` trains the first stage with the PatchGAN loss
+and writes `<logdir>/last` in the port's layout. `clip.*` in the config
 names the CLIP towers' weights (torch state dicts) and the BPE merges; the
 debug encoder (`--debug-encoder`) stands in without them. The JAX CLI's
-`test`, `eval`, `convert`, `train-vae`, `distill` and `bringup`,
+`convert`, `distill` and `bringup`, orbax weight directories,
 `--multihost`, `--dp`, `--tp` and the distilled-student sidecar are not
-ported yet; each option names the ROADMAP item it waits on.
+ported yet; each names the ROADMAP item it waits on.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -218,6 +233,196 @@ def cmd_sample(cfg, args):
     return imgs
 
 
+def _fid_fn(cfg, args, device):
+    """The protocol FID's extractor from --fid-weights (else
+    eval.fid_weights): pytorch_fid's InceptionV3 pool3 from a pt_inception
+    .pth, on `device` (reference scripts/eval_metrics.py:100-112)."""
+    from upgpt_torch.eval.inception import (
+        InceptionFeatureFn, load_pt_inception,
+    )
+
+    path = getattr(args, "fid_weights", None) or (
+        cfg.get("eval") or {}).get("fid_weights")
+    if not path:
+        return None
+    if Path(path).is_dir():
+        raise SystemExit(
+            f"--fid-weights {path}: a directory (the JAX CLI's converted "
+            f"orbax tree); the port reads the pt_inception .pth, and orbax "
+            f"trees wait on the checkpoint bridges (ROADMAP §1 item 7)")
+    return InceptionFeatureFn(load_pt_inception(path), device)
+
+
+def _crop_hw(cfg) -> tuple:
+    # the protocol's crop: 256x176, or the config's (512x352 for the 512px
+    # stages, mm_512.yaml:39-40)
+    return tuple((cfg.get("eval") or {}).get("crop_size") or (256, 176))
+
+
+def _write_metrics(results_dir, metrics: dict) -> None:
+    # beside metrics.csv, so callers need not read stdout
+    (Path(results_dir) / "metrics.json").write_text(
+        json.dumps(metrics, indent=2))
+
+
+def cmd_test(cfg, args):
+    """Sample the config's test split (else validation) from a checkpoint,
+    dump the paired groups and score them (JAX `cmd_test`: the reference's
+    test_step, ddpm.py:1327-1377, then its auto-eval, main.py:797-801).
+    Prints the metrics, writes metrics.json beside metrics.csv and returns
+    {"metrics", "seconds"}: the host wall of the sampling, the recon, the
+    dump and the metrics."""
+    from upgpt_torch.eval.harness import dump_test_results, evaluate_dirs
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+    from upgpt_torch.training.trainer import Trainer, to_device
+
+    _refuse_unported(args)
+    model = _load_model(cfg["model"], args.ckpt)
+    enc = _build_cond_encoder(cfg, model,
+                              allow_debug=getattr(args, "debug_encoder",
+                                                  False))
+    fid_fn = _fid_fn(cfg, args, model.device)
+    samp = cfg.get("sampling") or {}
+    pipe = GenerationPipeline(
+        model, num_steps=args.steps or samp.get("ddim_steps", 200),
+        eta=samp.get("eta", 1.0),
+        sampler=args.sampler or samp.get("sampler", "ddim"),
+        schedule_method=args.schedule or samp.get("schedule", "uniform"))
+    crop_hw = _crop_hw(cfg)
+    loaders = _loaders(cfg, args.batch)
+    loader = loaders.get("test") or loaders["validation"]
+    results = Path(args.out)
+    seconds = dict.fromkeys(("sampling", "recon", "dump", "metrics"), 0.0)
+    n = 0
+    for raw in loader.epoch(0):
+        t0 = time.perf_counter()
+        batch = to_device(enc.encode_batch(raw), Trainer._GENERATE,
+                          model.device)
+        gen = torch.Generator(device=model.device).manual_seed(
+            args.seed + n)
+        imgs = pipe.generate(batch, gen).float().cpu().numpy()
+        t1 = time.perf_counter()
+        # the VAE's round trip through the posterior's mode (the
+        # reference's `reconstruction`, ddpm.py:1389-1393)
+        gt = np.asarray(raw["image"], np.float32)
+        with torch.inference_mode():
+            recon = model.decode_first_stage(model.encode_first_stage_mode(
+                torch.from_numpy(gt))).float().cpu().numpy()
+        t2 = time.perf_counter()
+        extra = {"recon": recon}
+        for key, group in (("src_image", "src"), ("smpl_image", "smpl")):
+            if key in raw:
+                extra[group] = np.asarray(raw[key])
+        fnames = raw.get("fname", [f"img{n + i}" for i in range(len(imgs))])
+        dump_test_results(str(results), fnames, imgs, gt=gt, extra=extra,
+                          styles=raw.get("styles"), make_concats=True,
+                          crop_hw=crop_hw)
+        seconds["sampling"] += t1 - t0
+        seconds["recon"] += t2 - t1
+        seconds["dump"] += time.perf_counter() - t2
+        n += len(imgs)
+        if args.max_images and n >= args.max_images:
+            break
+    t0 = time.perf_counter()
+    metrics = evaluate_dirs(str(results), crop_hw=crop_hw,
+                            fid_feature_fn=fid_fn, device=model.device)
+    seconds["metrics"] = time.perf_counter() - t0
+    print(json.dumps(metrics))
+    _write_metrics(results, metrics)
+    print(f"cli test: {n} images, wall {json.dumps(seconds)} s",
+          file=sys.stderr)
+    return {"metrics": metrics, "seconds": seconds}
+
+
+def cmd_eval(cfg, args):
+    """Score a dump of `test` again (JAX `cmd_eval`), on --device, at the
+    config's crop; prints the metrics and writes metrics.json."""
+    from upgpt_torch.eval.harness import evaluate_dirs
+
+    metrics = evaluate_dirs(args.dir, crop_hw=_crop_hw(cfg),
+                            fid_feature_fn=_fid_fn(cfg, args, args.device),
+                            device=args.device)
+    print(json.dumps(metrics))
+    _write_metrics(args.dir, metrics)
+    return metrics
+
+
+def build_vae_training(cfg):
+    """(vae, loss module) of a `train-vae` config from its trainer.seed:
+    the config's autoencoder (float32 parameters under its compute dtype)
+    and the PatchGAN loss (`loss.*`) on the VAE's device."""
+    from upgpt_torch.training.vae_loss import (
+        LPIPSWithDiscriminator, VAELossConfig,
+    )
+
+    torch.manual_seed((cfg.get("trainer") or {}).get("seed", 42))
+    vae = instantiate_from_config(cfg["model"])
+    loss_mod = LPIPSWithDiscriminator(VAELossConfig(**(cfg.get("loss")
+                                                       or {})))
+    return vae, loss_mod.to(vae.quant_conv.weight.device)
+
+
+def cmd_train_vae(cfg, args):
+    """Train the first stage (JAX `cmd_train_vae`; the reference's main.py
+    on an autoencoder config, contperceptual's loss) on the config's train
+    split: Adam at the scaled learning rate, a JSON log line every
+    `trainer.log_every` steps, `<logdir>/last` ({"vae", "loss": {"disc",
+    "disc_stats", "logvar"}, "step"}) after each epoch. Stops at
+    `trainer.max_steps` within an epoch, where JAX finishes the epoch
+    (ROADMAP R9). Returns {"step", "logs", "vae", "loss"}."""
+    from upgpt_torch.training.train_state import scaled_learning_rate
+    from upgpt_torch.training.vae_trainer import (
+        make_vae_optimizers, vae_train_step,
+    )
+
+    tc = cfg.get("trainer") or {}
+    vae, loss_mod = build_vae_training(cfg)
+    dev = vae.quant_conv.weight.device
+    if loss_mod.config.perceptual_weight > 0:
+        # JAX's cli builds the loss without an lpips_fn too (ROADMAP R8)
+        print(f"WARNING: train-vae: the perceptual term (perceptual_weight "
+              f"{loss_mod.config.perceptual_weight}) is off: no LPIPS "
+              f"weights are wired into the loss; it trains on L1 + KL + "
+              f"GAN", file=sys.stderr)
+    batch_size = tc.get("batch_size", 12)
+    lr = scaled_learning_rate(tc.get("base_learning_rate", 4.5e-6),
+                              batch_size, 1,
+                              scale_lr=tc.get("scale_lr", True))
+    opts = make_vae_optimizers(lr, vae, loss_mod)
+    gen = torch.Generator(device=dev).manual_seed(tc.get("seed", 42))
+    logdir = Path(tc.get("logdir", "logs/vae"))
+    logdir.mkdir(parents=True, exist_ok=True)
+    loader = _loaders(cfg, batch_size)["train"]
+    max_steps, log_every = tc.get("max_steps"), tc.get("log_every", 50)
+    step, logged = 0, []
+    try:
+        for epoch in range(tc.get("max_epochs", 100)):
+            for raw in loader.epoch(epoch):
+                batch = torch.as_tensor(np.asarray(raw["image"],
+                                                   np.float32)).to(dev)
+                logs = vae_train_step(vae, loss_mod, opts, batch, step,
+                                      generator=gen)
+                step += 1
+                if step % log_every == 0:
+                    line = {"step": step, **{k: float(v)
+                                             for k, v in logs.items()}}
+                    logged.append(line)
+                    print(json.dumps(line), flush=True)
+                if max_steps and step >= max_steps:
+                    break
+            torch.save({"vae": vae.state_dict(),
+                        "loss": loss_mod.checkpoint_state(), "step": step},
+                       logdir / "last")
+            if max_steps and step >= max_steps:
+                break
+    finally:
+        close = getattr(loader, "close", None)
+        if close is not None:
+            close()
+    print(f"done at step {step}; checkpoints in {logdir}")
+    return {"step": step, "logs": logged, "vae": vae, "loss": loss_mod}
+
+
 def cmd_data_verify(cfg, args):
     """The readiness drill (`data/verify.py`): a DeepFashion root's CSV
     schemas, caption keys, SMPL pickles and tree completeness, before the
@@ -342,7 +547,7 @@ def _common(sub, name: str) -> argparse.ArgumentParser:
     sp.add_argument("--config", "--base", dest="config", nargs="*",
                     default=[], help="YAML configs, merged left to right")
     sp.add_argument("overrides", nargs="*", help="key=value dotlist")
-    if name != "data-verify":
+    if name in ("train", "sample", "test", "serve"):
         sp.add_argument("--debug-encoder", action="store_true",
                         help="allow hash-embedding conditioning (no CLIP "
                              "weights; NOT output parity)")
@@ -375,6 +580,36 @@ def parser() -> argparse.ArgumentParser:
                     choices=("uniform", "quad", "karras"))
     sp.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel sampling (not ported: > 1 raises)")
+
+    sp = _common(sub, "test")
+    sp.add_argument("--ckpt", required=True,
+                    help="a checkpoint of upgpt_torch.checkpoint, either "
+                         "layout")
+    sp.add_argument("--out", default="results")
+    sp.add_argument("--steps", type=int, default=None)
+    sp.add_argument("--batch", type=int, default=8)
+    sp.add_argument("--seed", type=int, default=0,
+                    help="each batch draws from seed + the number of "
+                         "images before it")
+    sp.add_argument("--max-images", type=int, default=None)
+    sp.add_argument("--sampler", default=None,
+                    choices=("ddim", "dpm++", "unipc"))
+    sp.add_argument("--schedule", default=None,
+                    choices=("uniform", "quad", "karras"))
+    sp.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel sampling (not ported: > 1 raises)")
+    sp.add_argument("--fid-weights", default=None,
+                    help="pt_inception .pth for the protocol's FID")
+
+    sp = _common(sub, "eval")
+    sp.add_argument("--dir", required=True,
+                    help="a `test` dump (samples/ and gt/)")
+    sp.add_argument("--fid-weights", default=None,
+                    help="pt_inception .pth for the protocol's FID")
+    sp.add_argument("--device", default="cuda",
+                    help="where the metrics run (default: the card)")
+
+    _common(sub, "train-vae")
 
     sp = _common(sub, "data-verify")
     sp.add_argument("--root", default=None,
@@ -419,7 +654,9 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = parser().parse_args(argv)
     cfg = merge_configs(args.config, args.overrides) if args.config else {}
-    return {"train": cmd_train, "sample": cmd_sample, "serve": cmd_serve,
+    return {"train": cmd_train, "sample": cmd_sample, "test": cmd_test,
+            "eval": cmd_eval, "train-vae": cmd_train_vae,
+            "serve": cmd_serve,
             "data-verify": cmd_data_verify}[args.cmd](cfg, args)
 
 

@@ -10,9 +10,16 @@ so a flattened JAX key maps to a port key by joining with "." instead of
 - Dense `kernel` (in, out)            -> Linear `weight` (out, in)
 - GroupNorm/LayerNorm `scale`/`bias`  -> `weight`/`bias`
 - Embed `embedding` (V, D)            -> Embedding `weight` (V, D)
+- BatchNorm `batch_stats` `mean`/`var` -> `running_mean`/`running_var`
+  (the PatchGAN discriminator's; merge its `params` and `batch_stats`
+  trees into one mapping: their leaves differ)
 - the CLIP towers' bare parameters (`position_embedding`,
-  `class_embedding`, `text_projection`, `visual_projection`) keep their
-  names and layout.
+  `class_embedding`, `text_projection`, `visual_projection`) and the FID
+  Inception's folded BatchNorm (`bn_scale`, `bn_bias`) keep their names
+  and layout.
+
+LPIPS's `lin_k` heads are bias-free 1x1 convs: their `kernel` maps as any
+conv's, and a head with a bias would be reported as a missing key.
 
 The CLIP towers (`models/clip.py`) and the text-style fusion
 (`cond_fusion.cross_att`) carry JAX's names too, so their trees load the
@@ -32,9 +39,10 @@ import numpy as np
 import torch
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-         "embedding": "weight"}
+         "embedding": "weight", "mean": "running_mean",
+         "var": "running_var"}
 _BARE = ("position_embedding", "class_embedding", "text_projection",
-         "visual_projection")
+         "visual_projection", "bn_scale", "bn_bias")
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:

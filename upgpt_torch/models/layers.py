@@ -27,15 +27,16 @@ def _cast(x: Optional[torch.Tensor], dtype: torch.dtype):
 class Conv2d(nn.Conv2d):
     """nn.Conv2d taking and returning NHWC tensors."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, zero_init: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride: int = 1, padding=0, zero_init: bool = False,
+                 dtype: Optional[torch.dtype] = None, bias: bool = True):
         super().__init__(in_channels, out_channels, kernel_size,
-                         stride=stride, padding=padding)
+                         stride=stride, padding=padding, bias=bias)
         self.compute_dtype = dtype
         if zero_init:  # the reference's zero_module (util.py:174-180)
             nn.init.zeros_(self.weight)
-            nn.init.zeros_(self.bias)
+            if bias:
+                nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         comp = self.compute_dtype or self.weight.dtype

@@ -9,6 +9,9 @@ upsampling, and the encoder's asymmetric (0, 1, 0, 1) pad before a VALID
 stride-2 conv. `encode` returns a `DiagonalGaussian` over float32 moments.
 `AutoencoderConfig.dtype` is the compute dtype (see models/layers.py).
 `kl_f8` is the main stage, `kl_f4` the upscale stage (z=3, ch_mult 1/2/4).
+`AutoencoderKL.forward` samples the posterior and decodes, returning
+`(dec, posterior)` as JAX's `__call__` does; the posterior's `kl` and
+`nll` feed the first stage's training loss (`training/vae_loss.py`).
 `use_fused_groupnorm` routes every norm through `VAEGroupNorm` to the
 GroupNorm kernels (`ops/fused_gn.py`): the one-pass kernel where it
 qualifies, the row-tiled one for decode-size tensors, as the JAX
@@ -19,6 +22,7 @@ model, not here.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -38,6 +42,8 @@ from upgpt_torch.ops.fused_gn import (
 class AutoencoderConfig:
     embed_dim: int = 4
     z_channels: int = 4
+    # the encoder emits mean and log-variance (the reference's double_z)
+    double_z: bool = True
     ch: int = 128
     ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
     num_res_blocks: int = 2
@@ -45,6 +51,9 @@ class AutoencoderConfig:
     in_channels: int = 3
     out_ch: int = 3
     resolution: int = 256
+    # dropout between a ResnetBlock's second norm and conv, in train mode
+    # only; JAX's paths, training included, call the VAE deterministic
+    dropout: float = 0.0
     use_flash_attention: bool = False
     # every GroupNorm through the CUDA GroupNorm kernels (VAEGroupNorm)
     use_fused_groupnorm: bool = False
@@ -86,22 +95,23 @@ class VAEGroupNorm(Norm):
 
 
 class ResnetBlock(nn.Module):
-    """GN->swish->conv ->GN->swish->conv + (1x1) shortcut."""
+    """GN->swish->conv ->GN->swish->dropout->conv + (1x1) shortcut."""
 
     def __init__(self, in_channels: int, out_channels: int, dtype=None,
-                 fused_gn: bool = False):
+                 fused_gn: bool = False, dropout: float = 0.0):
         super().__init__()
         self.norm1 = VAEGroupNorm(in_channels, fused_gn, with_silu=True)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,
                             dtype=dtype)
         self.norm2 = VAEGroupNorm(out_channels, fused_gn, with_silu=True)
+        self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1,
                             dtype=dtype)
         self.nin_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                              if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        h = self.conv2(self.dropout(self.norm2(self.conv1(self.norm1(x)))))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -167,7 +177,7 @@ class Encoder(nn.Module):
             for i_block in range(cfg.num_res_blocks):
                 name = f"down_{i_level}_block_{i_block}"
                 self.add_module(name, ResnetBlock(block_in, block_out, comp,
-                                                  fgn))
+                                                  fgn, cfg.dropout))
                 self._plan.append(name)
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
@@ -180,14 +190,15 @@ class Encoder(nn.Module):
                 self.add_module(name, Downsample(block_out, comp))
                 self._plan.append(name)
                 curr_res //= 2
-        self.mid_block_1 = ResnetBlock(block_in, block_in, comp, fgn)
+        self.mid_block_1 = ResnetBlock(block_in, block_in, comp, fgn,
+                                       cfg.dropout)
         self.mid_attn_1 = AttnBlock(block_in, cfg.use_flash_attention, comp,
                                     fgn)
-        self.mid_block_2 = ResnetBlock(block_in, block_in, comp, fgn)
+        self.mid_block_2 = ResnetBlock(block_in, block_in, comp, fgn,
+                                       cfg.dropout)
         self.norm_out = VAEGroupNorm(block_in, fgn, with_silu=True)
-        # mean and log-variance (the reference's double_z, always on here)
-        self.conv_out = Conv2d(block_in, 2 * cfg.z_channels, 3, padding=1,
-                               dtype=comp)
+        z = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.conv_out = Conv2d(block_in, z, 3, padding=1, dtype=comp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv_in(x)
@@ -208,10 +219,12 @@ class Decoder(nn.Module):
         block_in = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = Conv2d(cfg.z_channels, block_in, 3, padding=1,
                               dtype=comp)
-        self.mid_block_1 = ResnetBlock(block_in, block_in, comp, fgn)
+        self.mid_block_1 = ResnetBlock(block_in, block_in, comp, fgn,
+                                       cfg.dropout)
         self.mid_attn_1 = AttnBlock(block_in, cfg.use_flash_attention, comp,
                                     fgn)
-        self.mid_block_2 = ResnetBlock(block_in, block_in, comp, fgn)
+        self.mid_block_2 = ResnetBlock(block_in, block_in, comp, fgn,
+                                       cfg.dropout)
         self._plan = []
         curr_res = cfg.resolution // 2 ** (num_res - 1)
         for i_level in reversed(range(num_res)):
@@ -219,7 +232,7 @@ class Decoder(nn.Module):
             for i_block in range(cfg.num_res_blocks + 1):
                 name = f"up_{i_level}_block_{i_block}"
                 self.add_module(name, ResnetBlock(block_in, block_out, comp,
-                                                  fgn))
+                                                  fgn, cfg.dropout))
                 self._plan.append(name)
                 block_in = block_out
                 if curr_res in cfg.attn_resolutions:
@@ -251,6 +264,7 @@ class DiagonalGaussian:
         self.mean, logvar = moments.chunk(2, dim=-1)
         self.logvar = torch.clamp(logvar, -30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
+        self.var = torch.exp(self.logvar)
 
     def sample(self, noise: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -265,6 +279,24 @@ class DiagonalGaussian:
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def kl(self, other: Optional["DiagonalGaussian"] = None) -> torch.Tensor:
+        """(B,) KL divergence to `other`, or to the standard normal."""
+        dims = tuple(range(1, self.mean.dim()))
+        if other is None:
+            return 0.5 * torch.sum(self.mean.square() + self.var - 1.0
+                                   - self.logvar, dim=dims)
+        return 0.5 * torch.sum(
+            (self.mean - other.mean).square() / other.var
+            + self.var / other.var - 1.0 - self.logvar + other.logvar,
+            dim=dims)
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        """(B,) negative log-likelihood of `sample`."""
+        dims = tuple(range(1, self.mean.dim()))
+        return 0.5 * torch.sum(
+            math.log(2.0 * math.pi) + self.logvar
+            + (sample - self.mean).square() / self.var, dim=dims)
+
 
 class AutoencoderKL(nn.Module):
     """Encoder + 1x1 quant/post-quant convs + Decoder."""
@@ -274,10 +306,13 @@ class AutoencoderKL(nn.Module):
         self.config = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = Conv2d(2 * cfg.z_channels, 2 * cfg.embed_dim, 1,
-                                 dtype=cfg.dtype)
-        self.post_quant_conv = Conv2d(cfg.embed_dim, cfg.z_channels, 1,
-                                      dtype=cfg.dtype)
+        factor = 2 if cfg.double_z else 1
+        self.quant_conv = Conv2d(factor * cfg.z_channels,
+                                 factor * cfg.embed_dim, 1, dtype=cfg.dtype)
+        # the posterior's mean: half the moments (JAX's tree without
+        # double_z too; the reference's AutoencoderKL requires it)
+        self.post_quant_conv = Conv2d(factor * cfg.embed_dim // 2,
+                                      cfg.z_channels, 1, dtype=cfg.dtype)
 
     def encode(self, x: torch.Tensor) -> DiagonalGaussian:
         moments = self.quant_conv(self.encoder(x))
@@ -285,3 +320,14 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                sample_posterior: bool = True):
+        """(decoded image, posterior) of an NHWC image: the decode of a
+        posterior sample (`noise`, else drawn from `generator`) or of its
+        mode."""
+        posterior = self.encode(x)
+        z = (posterior.sample(noise, generator) if sample_posterior
+             else posterior.mode())
+        return self.decode(z), posterior

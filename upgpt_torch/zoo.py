@@ -39,6 +39,11 @@ are off. The training benchmark turns on `use_fused_groupnorm`; the
 
 On CPU tensors every kernel runs its plain version.
 
+`build_autoencoder` builds the first stage alone (`configs/autoencoder/`),
+float32 parameters under the compute dtype, as flax's `dtype` over a
+float32 `param_dtype`, with flash attention and the GroupNorm kernels off
+unless `**over` turns them on, as JAX's `AutoencoderConfig` has them.
+
 `use_checkpoint` is the configs' rematerialisation switch (the
 inshop_laion config sets it): `torch.utils.checkpoint` over every ResBlock
 and SpatialTransformer, whose kernels then launch again in the backward.
@@ -58,7 +63,7 @@ from upgpt_torch.diffusion.latent_diffusion import (
     LatentDiffusion, LatentDiffusionConfig,
 )
 from upgpt_torch.models.unet import UNetConfig
-from upgpt_torch.models.vae import AutoencoderConfig
+from upgpt_torch.models.vae import AutoencoderConfig, AutoencoderKL
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -167,6 +172,15 @@ def _dtype(d: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[d] if isinstance(d, str) else d
 
 
+def _on(device: Union[str, torch.device], builder: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{builder}: no CUDA card is available; the port builds on the "
+            f"card unless device='cpu' is given")
+    return device
+
+
 def build_latent_diffusion(
     variant: str = "interp_256",
     dtype: Union[str, torch.dtype] = "float32",
@@ -185,11 +199,7 @@ def build_latent_diffusion(
     unless the caller names another device)."""
     if variant not in _BUILDERS:
         raise KeyError(f"unknown variant {variant!r}; have {list(_BUILDERS)}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_latent_diffusion: no CUDA card is available; the port "
-            "builds on the card unless device='cpu' is given")
+    device = _on(device, "build_latent_diffusion")
     comp = _dtype(dtype)
     kernels = {"use_flash_attention": use_flash_attention,
                "use_fused_transformer": use_fused_transformer,
@@ -203,3 +213,17 @@ def build_latent_diffusion(
         cfg = dataclasses.replace(cfg, **overrides)
     return LatentDiffusion(cfg).to(
         device=device, dtype=_dtype(param_dtype or dtype)).eval()
+
+
+def build_autoencoder(kind: str = "kl_f8",
+                      dtype: Union[str, torch.dtype] = "float32",
+                      device: Union[str, torch.device] = "cuda",
+                      **over) -> AutoencoderKL:
+    """kl-f8 or kl-f4 (`kind`) with `AutoencoderConfig` fields in `over`,
+    float32 parameters computing in `dtype`, on `device` (the card unless
+    the caller names another device)."""
+    if kind not in ("kl_f8", "kl_f4"):
+        raise KeyError(f"unknown autoencoder {kind!r}; have kl_f8, kl_f4")
+    device = _on(device, "build_autoencoder")
+    cfg = getattr(AutoencoderConfig, kind)(dtype=_dtype(dtype), **over)
+    return AutoencoderKL(cfg).to(device=device, dtype=torch.float32).eval()
