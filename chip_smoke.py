@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's sampling, training, evaluation, 256->512 chain
-and serving paths on one NVIDIA GPU.
+"""Drive the PyTorch port's sampling, training, evaluation, 256->512 chain,
+serving, weight-drop runbook and demo app paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,7 +11,9 @@ CUDA toolkit. It
 2. holds each kernel against its plain PyTorch version in bf16 at the
    shapes the paths below give it (sampling at batch 8, training at
    batch 12, inshop_laion's 78-token context at batch 12, the chain at
-   batch 4, mm_512's served batch of 8; the
+   batch 4, mm_512's served batch of 8, the runbook's validators at batch
+   1 over a 77-token context projected in-kernel, its sampler check and
+   the app at batch 2, the app's upscale stage at batch 2; the
    half-step kernel and the two
    GroupNorm kernels after step 5, at every shape the train step and the
    chain run launched them at, with the launches their counters recorded
@@ -119,7 +121,28 @@ CUDA toolkit. It
    reply a 512x384 PNG, the launches those batches' structure gives, and
    one request's image against the pipeline's on the same packed batch and
    generators (at most one uint8 level; the share that differs printed);
-9. prints a JSON line of per-kernel results, the card's name and power
+9. bringup: re-draws interp_256 at full width in float32 on the card and
+   writes a drop: `interp_256.ckpt` in the reference's Lightning layout
+   (the U-Net under `model.diffusion_model.*`, a `model_ema.*` shadow of
+   half its weights, the VAE, the pose stage under
+   `extra_cond_models.0.*`, non-tensor entries the weights-only loader
+   refuses), an HF CLIP snapshot at ViT-L/14's widths with BPE merges,
+   and a pt_inception-layout .pth; runs `python -m upgpt_torch.cli
+   convert --ema` in-process (every output tensor equal to its EMA, VAE
+   or pose source bit for bit; one U-Net eval of the converted model
+   equal to the source weights' on the card); then `cli bringup --variants
+   interp_256 --skip-eval` with the bench on: exit 3 (random weights
+   rejected: PSNR below 20 dB, |eps correlation| below 0.1), finite
+   sampler SSIMs, the CLIP step's towers loaded on the card, report.json
+   and REPORT.md written, the bench's img/s (DDIM-50, eta 1, batch 8) and
+   the launches against the structure (validators, sampler check, bench);
+10. the demo app (`upgpt_torch.app`) on 127.0.0.1 over the converted
+   checkpoint with a re-drawn full-width upscale stage: the page, two
+   frames with a style text override at DDIM-50 and at UniPC-8 (two
+   256x192 PNGs each), `/api/upscale` (two 512x384 PNGs at 200 steps) and
+   a 404, each request's launches against the structure and its latency;
+   the drop, the checkpoints and the report are removed after;
+11. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
 On every path bf16 attention must run the tensor-core flash kernels: the
@@ -136,6 +159,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 
 import torch
@@ -407,7 +431,10 @@ def kernel_checks(dev) -> dict:
         # inshop_laion's 78-token context (its `cli sample` and its train
         # step, the latter also in the backward's recompute); the upscale
         # net's ds4 (C 512, dh 64) with its 86-token K/V at the chain batch
-        # and mm_512's ds2 (T 768, C 448) at the serving batch
+        # and mm_512's ds2 (T 768, C 448) at the serving batch; the
+        # runbook's validators (batch 1, the context projected in-kernel
+        # over 77 tokens), its sampler check and the app (batch 2, Tk 87),
+        # and the app's upscale ds4 (batch 2, Tk 86)
         for b, t, c, variant in [(BATCH, 768, 224, "kv"),
                                  (BATCH, 192, 448, "kv"),
                                  (TRAIN_BATCH, 768, 224, "fit"),
@@ -419,13 +446,19 @@ def kernel_checks(dev) -> dict:
                                  (TRAIN_BATCH, 768, 224, "laion_ctx"),
                                  (TRAIN_BATCH, 192, 448, "laion_ctx"),
                                  (CHAIN_BATCH, 768, 512, "chain"),
-                                 (SERVE_BATCH, 768, 448, "serve")]:
+                                 (SERVE_BATCH, 768, 448, "serve"),
+                                 (1, 768, 224, "validate"),
+                                 (1, 192, 448, "validate"),
+                                 (2, 768, 224, "bringup_kv"),
+                                 (2, 192, 448, "bringup_kv"),
+                                 (APP_FRAMES, 768, 512, "app_up")]:
             p = _random_block(c, 768, g)
             x = randn(b, t, c).bfloat16()
             tk = {"chain": UP_CONTEXT_TOKENS, "laion_kv": LAION_CONTEXT_TOKENS,
-                  "laion_ctx": LAION_CONTEXT_TOKENS}.get(variant,
-                                                         CONTEXT_TOKENS)
-            if variant in ("kv", "fit", "chain", "serve", "laion_kv"):
+                  "laion_ctx": LAION_CONTEXT_TOKENS, "validate": 77,
+                  "app_up": UP_CONTEXT_TOKENS}.get(variant, CONTEXT_TOKENS)
+            if variant in ("kv", "fit", "chain", "serve", "laion_kv",
+                           "bringup_kv", "app_up"):
                 kv = (randn(b, tk, c).bfloat16(), randn(b, tk, c).bfloat16())
                 kw, work = {"kv": kv}, _block_work(b, t, c, tk)
             else:
@@ -435,7 +468,9 @@ def kernel_checks(dev) -> dict:
                 f"fused_transformer_block[{variant}]", (b, t, c, 8, tk),
                 {"kv": "sampling", "ctx": "training", "fit": "fit",
                  "serve": "serve", "laion_kv": "laion_sample",
-                 "laion_ctx": "laion_train"}.get(variant, "chain"),
+                 "laion_ctx": "laion_train", "validate": "bringup",
+                 "bringup_kv": "bringup", "app_up": "app"}.get(variant,
+                                                               "chain"),
                 lambda: ft.fused_transformer_block(x, p, 8, **kw),
                 lambda: ft.transformer_block_reference(x, p, 8, **kw), work)
             row["gemm_library_ms"], row["gemm_library_device_ms"] = \
@@ -450,14 +485,19 @@ def kernel_checks(dev) -> dict:
         # batch, encoder at the training batch, also `cli test`'s decode
         # and recon), the ds1 self-attention the
         # training backward recomputes, the upscale net's ds2
-        # self-attention at the chain batch, and mm_512's decoder mid
-        # AttnBlock and ds1 self-attention (T 3072) at the serving batch
+        # self-attention at the chain batch, mm_512's decoder mid
+        # AttnBlock and ds1 self-attention (T 3072) at the serving batch,
+        # the runbook's kl-f8 AttnBlocks at batch 1 (validators) and 2
+        # (sampler check, app), and the app's upscale ds2 at batch 2
         for shape, path in [((BATCH, 1, 768, 512), "sampling"),
                             ((TRAIN_BATCH, 1, 768, 512), "training"),
                             ((TRAIN_BATCH, 8, 768, 28), "training"),
                             ((CHAIN_BATCH, 8, 3072, 64), "chain"),
                             ((SERVE_BATCH, 1, 3072, 512), "serve"),
-                            ((SERVE_BATCH, 8, 3072, 28), "serve")]:
+                            ((SERVE_BATCH, 8, 3072, 28), "serve"),
+                            ((1, 1, 768, 512), "bringup"),
+                            ((APP_FRAMES, 1, 768, 512), "bringup"),
+                            ((APP_FRAMES, 8, 3072, 64), "app")]:
             q, k, v = (randn(shape).bfloat16() for _ in range(3))
             bh, t, d = shape[0] * shape[1], shape[2], shape[3]
             cases["flash_attention"].append(_compare(
@@ -3238,6 +3278,407 @@ def serve_run(dev, card: str) -> dict:
             "served_share_differing": differ, **e2e}
 
 
+# the bringup phase: a drop of re-drawn interp_256 weights in the
+# reference's Lightning layout, `cli convert --ema`, then `cli bringup`
+# with the bench on; the app phase: the demo app over the converted
+# checkpoint and a re-drawn upscale stage
+BRINGUP_VARIANT = "interp_256"
+APP_FRAMES, APP_STEPS, APP_UNIPC_STEPS = 2, 50, 8
+APP_UPSCALE_STEPS = 200  # UpscalePipeline's default
+# random weights: the validators' gates (20 dB, 0.5) must reject them, by
+# a margin: PSNR below 20 dB and |eps correlation| below 0.1
+BRINGUP_CORR_MAX = 0.1
+
+
+def _hf_clip_state_dict(dev, seed: int) -> dict:
+    """An HF CLIPModel state dict at ViT-L/14's widths (text 12 x 768,
+    vision 24 x 1024 over 16 x 16 patches of 14, both projections to 768),
+    host float32 drawn on the card: weights N(0, 1/fan_in), norm scales
+    1 + 0.1 N(0, 1), biases and shifts 0.1 N(0, 1), embeddings 0.02
+    N(0, 1). The released snapshot's layout (`pytorch_model.bin`)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def mat(*shape, std=None):
+        std = 1 / math.sqrt(math.prod(shape[1:])) if std is None else std
+        return (std * torch.randn(*shape, generator=g, device=dev)).cpu()
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=g, device=dev)).cpu()
+
+    sd = {}
+
+    def norm(prefix, w):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = vec(w, 1.0), vec(w)
+
+    def linear(prefix, o, i):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = mat(o, i), vec(o)
+
+    def encoder(prefix, w, layers):
+        for i in range(layers):
+            lp = f"{prefix}encoder.layers.{i}"
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                linear(f"{lp}.self_attn.{proj}", w, w)
+            norm(f"{lp}.layer_norm1", w)
+            norm(f"{lp}.layer_norm2", w)
+            linear(f"{lp}.mlp.fc1", 4 * w, w)
+            linear(f"{lp}.mlp.fc2", w, 4 * w)
+
+    t, v = "text_model.", "vision_model."
+    sd[f"{t}embeddings.token_embedding.weight"] = mat(CLIP_VOCAB, 768,
+                                                      std=0.02)
+    sd[f"{t}embeddings.position_embedding.weight"] = mat(77, 768, std=0.02)
+    encoder(t, 768, 12)
+    norm(f"{t}final_layer_norm", 768)
+    sd[f"{v}embeddings.patch_embedding.weight"] = mat(1024, 3, 14, 14)
+    sd[f"{v}embeddings.class_embedding"] = mat(1024, std=0.02)
+    sd[f"{v}embeddings.position_embedding.weight"] = mat(257, 1024, std=0.02)
+    norm(f"{v}pre_layrnorm", 1024)
+    norm(f"{v}post_layernorm", 1024)
+    encoder(v, 1024, 24)
+    sd["text_projection.weight"] = mat(768, 768)
+    sd["visual_projection.weight"] = mat(768, 1024)
+    return sd
+
+
+def _add_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def expected_bringup_counts(model, pipes: list) -> dict:
+    """`cli bringup`'s launches on one converted variant: the validators
+    (an encode and a decode at batch 1, one U-Net eval over a zero 77-token
+    context, the block kernel projecting it), the sampler check (each of
+    its four pipelines at batch 2 with an 87-token context, one decode
+    each) and the bench (a warm-up and three runs of DDIM-50 at batch 8).
+    `pipes` are the sampler check's pipelines (their step counts)."""
+    from upgpt_torch.bringup import BENCH_BATCH, BENCH_RUNS, BENCH_STEPS
+    from upgpt_torch.ops.flash_attention import flash_attention_qualifies
+
+    h, w = model.config.latent_size
+    vcfg = model.vae.config
+    validate = expected_sampling_counts(model, 1, 77, 1)
+    validate["flash_attention"] += int(
+        vcfg.use_flash_attention and flash_attention_qualifies(
+            1, 1, h * w, h * w, vcfg.ch * vcfg.ch_mult[-1],
+            model.vae.encoder.conv_in.weight.dtype))
+    checks = [expected_sampling_counts(model, 2, CONTEXT_TOKENS,
+                                       p.num_steps) for p in pipes]
+    bench = expected_sampling_counts(model, BENCH_BATCH, CONTEXT_TOKENS,
+                                     BENCH_STEPS)
+    return _add_counts(validate, *checks,
+                       *([bench] * (BENCH_RUNS + 1)))
+
+
+def _write_drop(dev, drop: str) -> dict:
+    """The drop: interp_256 re-drawn at full width in float32 on the card,
+    written in the reference's Lightning layout with a LitEma shadow of
+    half the raw U-Net, non-tensor entries (an argparse Namespace among
+    the hyper-parameters, which the weights-only loader refuses); an HF
+    CLIP snapshot with the BPE merges; a pt_inception-layout .pth. Returns
+    the sources the conversion is held to (host tensors by the port's
+    names) and the checkpoint's path and bytes."""
+    import argparse
+
+    from upgpt_torch.convert.lightning import to_lightning_state_dict
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    model = build_latent_diffusion(BRINGUP_VARIANT, dtype="float32",
+                                   device=dev)
+    _redraw(model, seed=101, dev=dev)
+    with torch.no_grad():
+        ema = {k: 0.5 * v for k, v in model.unet.state_dict().items()}
+        sd = {k: v.cpu() for k, v in
+              to_lightning_state_dict(model, ema).items()}
+    src = {"unet": {k: v.cpu() for k, v in ema.items()},
+           "vae": {k: v.cpu() for k, v in model.vae.state_dict().items()},
+           "pose": {k: v.cpu() for k, v in model.pose.state_dict().items()}}
+    del model, ema
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(drop, f"{BRINGUP_VARIANT}.ckpt")
+    torch.save({"state_dict": sd, "epoch": 11, "global_step": 123456,
+                "pytorch-lightning_version": "1.4.2",
+                "hyper_parameters": {"args": argparse.Namespace(
+                    base=["configs/deepfashion/interp_256.yaml"],
+                    scale_lr=False)}}, ckpt)
+    del sd
+    clip = os.path.join(drop, "clip-vit-large-patch14")
+    os.makedirs(clip)
+    torch.save(_hf_clip_state_dict(dev, 103),
+               os.path.join(clip, "pytorch_model.bin"))
+    _write_merges(os.path.join(clip, "bpe_simple_vocab_16e6.txt.gz"))
+    torch.save(_pt_inception_state_dict(105),
+               os.path.join(drop, "pt_inception-2015-12-05.pth"))
+    return {"src": src, "ckpt": ckpt, "bytes": os.path.getsize(ckpt)}
+
+
+def _convert_check(dev, drop: dict, conv: str) -> dict:
+    """`cli convert --ema` in-process; every tensor of the output against
+    its EMA, VAE or pose source bit for bit, and one U-Net eval of the
+    converted model against the source weights' on the card (bf16, the
+    zoo's switches), equal."""
+    from upgpt_torch import cli
+    from upgpt_torch.bringup import load_converted
+    from upgpt_torch.models.unet import precompute_cross_kv
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    t0 = time.perf_counter()
+    record = cli.main(["convert", "--torch-ckpt", drop["ckpt"], "--out",
+                       conv, "--variant", BRINGUP_VARIANT, "--ema"])
+    convert_s = time.perf_counter() - t0
+    if not record["ema"] or record["submodels"] != ["pose", "unet", "vae"]:
+        raise RuntimeError(f"cli convert: {record}")
+    payload = torch.load(conv, map_location="cpu", weights_only=True)
+    n = 0
+    for part, want in drop["src"].items():
+        got = payload[part]
+        if sorted(got) != sorted(want):
+            raise RuntimeError(f"cli convert: {part} keys differ")
+        for k, v in want.items():
+            if got[k].dtype != torch.float32 or not torch.equal(got[k], v):
+                raise RuntimeError(f"cli convert: {part}.{k} differs from "
+                                   f"its source")
+            n += 1
+    del payload
+    cvt = load_converted(BRINGUP_VARIANT, conv, dev)
+    src = build_latent_diffusion(BRINGUP_VARIANT, device=dev,
+                                 dtype=cvt.unet.conv_in.weight.dtype)
+    src.load_state_dict({f"{p}.{k}": v for p, part in drop["src"].items()
+                         for k, v in part.items()})
+    h, w = src.config.latent_size
+    batch = _batch(2, h, w, dev, seed=102)
+    x_t = torch.randn(2, h, w, 4, generator=torch.Generator(
+        device=dev).manual_seed(104), device=dev)
+    t = torch.tensor([981, 421], device=dev)
+    eps = []
+    with torch.inference_mode():
+        for m in (src, cvt):
+            ctx = m.build_context(batch["text_emb"], batch["style_emb"],
+                                  batch["smpl"])
+            eps.append(m.apply_model(x_t, t, {
+                "c_crossattn": ctx, "c_concat": batch["person_mask"],
+                "cross_kv": precompute_cross_kv(m.unet, ctx)}))
+    if not torch.isfinite(eps[0]).all() or not torch.equal(*eps):
+        raise RuntimeError(f"converted U-Net eval differs from the source's "
+                           f"(max|d| {(eps[0] - eps[1]).abs().max().item()})")
+    del src, cvt
+    torch.cuda.empty_cache()
+    print(f"cli convert --ema: {drop['bytes']} bytes in {convert_s:.3f} s "
+          f"({drop['bytes'] / convert_s / 1e9:.3f} GB/s), {n} tensors equal "
+          f"to their sources bit for bit; one U-Net eval (batch 2) of the "
+          f"converted model equals the source's", flush=True)
+    return {"convert_s": convert_s, "tensors": n, "unread": record["unread"]}
+
+
+def bringup_run(dev, card: str, drop: str, conv: str) -> dict:
+    """`cli bringup --drop ... --variants interp_256 --skip-eval` in-process
+    with the bench on: exit 3 on random weights, the validators' values
+    past their gates, finite sampler SSIMs, the CLIP step's towers loaded
+    on the card, report.json and REPORT.md, the bench's img/s, and the
+    launches against the structure."""
+    from upgpt_torch import cli
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    out = os.path.join(os.path.dirname(drop), "bringup")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["bringup", "--drop", drop, "--out", out, "--variants",
+                  BRINGUP_VARIANT, "--skip-eval"])
+        code = 0
+    except SystemExit as exc:
+        code = exc.code
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    if code != 3:
+        raise RuntimeError(f"cli bringup exited {code}, expected 3 (random "
+                           f"weights must be rejected)")
+    with open(os.path.join(out, "report.json")) as f:
+        report = json.load(f)
+    if not os.path.exists(os.path.join(out, "REPORT.md")):
+        raise RuntimeError("cli bringup wrote no REPORT.md")
+    steps = report["steps"]
+    (val,), (sc,) = steps["validate"], steps["sampler_check"]
+    if ("error" in val or val["vae_pass"] or val["unet_pass"]
+            or not val["vae_roundtrip_psnr_db"] < 20.0
+            or not abs(val["eps_corr_mid_t"]) < BRINGUP_CORR_MAX
+            or not val["unet_finite"]):
+        raise RuntimeError(f"validators on random weights: {val}")
+    ssims = {k: v for k, v in sc.items() if k.startswith("ssim_")}
+    if len(ssims) != 3 or not all(math.isfinite(v) for v in ssims.values()):
+        raise RuntimeError(f"sampler check: {sc}")
+    clip = steps["clip"]
+    if "error" in clip or not clip.get("loaded_on", "").startswith("cuda"):
+        raise RuntimeError(f"CLIP step: {clip}")
+    bench = steps["bench"]
+    if "img_per_s" not in bench or bench["shape"] != [8, 256, 192, 3]:
+        raise RuntimeError(f"bench step: {bench}")
+    # the structure of what the runbook built: the zoo's switches, bf16
+    with torch.device("meta"):
+        meta = build_latent_diffusion(BRINGUP_VARIANT, dtype="bfloat16",
+                                      device="meta")
+    pipes = [GenerationPipeline(meta, num_steps=n, eta=0.0, sampler=s,
+                                schedule_method=m)
+             for s, n, m in (("ddim", 200, "uniform"), ("ddim", 50, "uniform"),
+                             ("unipc", 8, "karras"),
+                             ("dpm++", 20, "uniform"))]
+    expected = expected_bringup_counts(meta, pipes)
+    if counts != expected:
+        raise RuntimeError(f"cli bringup launches {counts}, expected "
+                           f"{expected}")
+    sec = report["seconds"]
+    print(f"cli bringup: exit 3 in {wall:.3f} s (convert "
+          f"{sec['convert:' + BRINGUP_VARIANT]:.3f}, load "
+          f"{sec['load:' + BRINGUP_VARIANT]:.3f}, validators "
+          f"{sec['validate:' + BRINGUP_VARIANT]:.3f}, sampler check "
+          f"{sec['sampler_check:' + BRINGUP_VARIANT]:.3f}, clip "
+          f"{sec['clip']:.3f}, bench {sec['bench']:.3f}); VAE PSNR "
+          f"{val['vae_roundtrip_psnr_db']:.4f} dB, eps corr "
+          f"{val['eps_corr_mid_t']:.5f}; SSIM vs DDIM-200 "
+          f"{json.dumps(ssims)}; CLIP towers on {clip['loaded_on']}; "
+          f"launches K1 {counts['fused_transformer_block']}, flash "
+          f"{counts['flash_attention']}, K5 {counts['fused_group_norm']}",
+          flush=True)
+    print(f"bringup bench: {bench['protocol']} batch {bench['batch']}: "
+          f"{' '.join(f'{t:.4f}' for t in bench['s_per_batch'])} s/batch, "
+          f"{bench['img_per_s']:.3f} img/s on {bench['card']}", flush=True)
+    return {"launches": counts, "wall_s": wall, "seconds": sec,
+            "validate": val, "sampler_check": sc,
+            "bench_img_per_s": bench["img_per_s"],
+            "bench_s_per_batch": bench["s_per_batch"],
+            "clip_loaded_on": clip["loaded_on"]}
+
+
+def app_run(dev, card: str, conv: str, work: str) -> dict:
+    """The demo app on 127.0.0.1 over the converted checkpoint, with an
+    upscale stage of re-drawn full-width weights: the page, two-frame
+    generates with a style text override at DDIM-50 and at UniPC-8, the
+    upscale of the last one, a 404; each request's images and launches
+    against the structure, its latency."""
+    import threading
+
+    from upgpt_torch import app
+    from upgpt_torch.checkpoint import save_checkpoint
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    up = build_latent_diffusion("upscale", dtype="bfloat16", device=dev)
+    _redraw(up, seed=107, dev=dev)
+    up_ckpt = os.path.join(work, "upscale.pt")
+    save_checkpoint(up, up_ckpt)
+    del up
+    torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    args = app.parser().parse_args([
+        "--base", os.path.join(repo, "configs", "deepfashion",
+                               "interp_256.yaml"),
+        "--ckpt", conv, "--host", "127.0.0.1", "--port", "0",
+        "--upscale-base", os.path.join(repo, "configs", "deepfashion",
+                                       "upscale.yaml"),
+        "--upscale-ckpt", up_ckpt])
+    state, mode = app.build_state(args)
+    server = app.serve(state, mode, 0, "127.0.0.1")
+    load_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    model, upm = state.model, state.upscale.inner.model
+    out = {"load_s": load_s, "latency_s": {}}
+    counts = {}
+    try:
+        with urllib.request.urlopen(url + "/", timeout=60) as reply:
+            if reply.status != 200 or b"/api/generate" not in reply.read():
+                raise RuntimeError("app: the page did not answer")
+        base = {"txt": "a woman in a red dress", "frames": APP_FRAMES,
+                "pose": "3", "pose2": "5",
+                "style_texts": {"top": "a red shirt"}}
+        for label, payload, m, steps, tk in (
+                ("generate_ddim50", {**base, "steps": APP_STEPS,
+                                     "sampler": "ddim"},
+                 model, APP_STEPS, CONTEXT_TOKENS),
+                ("generate_unipc8", {**base, "steps": APP_UNIPC_STEPS,
+                                     "sampler": "unipc"},
+                 model, state.pipe(APP_UNIPC_STEPS, "unipc").num_steps,
+                 CONTEXT_TOKENS),
+                ("upscale", None, upm, APP_UPSCALE_STEPS,
+                 UP_CONTEXT_TOKENS)):
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            reply = _http(url + ("/api/upscale" if payload is None
+                                 else "/api/generate"), payload or {})
+            out["latency_s"][label] = time.perf_counter() - t0
+            counts[label] = _read_counts()
+            shape = _image_shape(m)
+            imgs = [_served_image(b, shape) for b in reply["images"]]
+            if len(imgs) != APP_FRAMES:
+                raise RuntimeError(f"app {label}: {len(imgs)} images")
+            expected = expected_sampling_counts(m, APP_FRAMES, tk, steps)
+            if counts[label] != expected:
+                raise RuntimeError(f"app {label}: launches {counts[label]},"
+                                   f" expected {expected}")
+            print(f"app {label}: {len(imgs)} PNGs of {shape} in "
+                  f"{out['latency_s'][label]:.3f} s; launches K1 "
+                  f"{counts[label]['fused_transformer_block']}, flash "
+                  f"{counts[label]['flash_attention']}", flush=True)
+        try:
+            _http(url + "/api/nope", {})
+            raise RuntimeError("app: an unknown endpoint answered 200")
+        except urllib.error.HTTPError as err:
+            if err.code != 404 or "unknown endpoint" not in json.loads(
+                    err.read())["error"]:
+                raise RuntimeError(f"app: unknown endpoint gave {err.code}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    print(f"app: models loaded in {load_s:.3f} s on {card}", flush=True)
+    out["launches"] = _add_counts(*counts.values())
+    return out
+
+
+def bringup_and_app_run(dev, card: str) -> dict:
+    """The bringup phase, then the app phase on its converted checkpoint,
+    in a temporary directory under `upgpt_torch/_build` removed after."""
+    import shutil
+    import tempfile
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "upgpt_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(dir=build_dir, prefix="bringup-")
+    try:
+        t_phase = time.perf_counter()
+        drop_dir = os.path.join(work, "drop")
+        os.makedirs(drop_dir)
+        t0 = time.perf_counter()
+        drop = _write_drop(dev, drop_dir)
+        write_s = time.perf_counter() - t0
+        print(f"bringup drop: {drop['bytes']} bytes of {BRINGUP_VARIANT}.ckpt"
+              f" (raw + EMA U-Net, VAE, pose; float32) written in "
+              f"{write_s:.3f} s", flush=True)
+        conv = os.path.join(work, f"{BRINGUP_VARIANT}.pt")
+        convert = _convert_check(dev, drop, conv)
+        del drop["src"]
+        torch.cuda.empty_cache()
+        bring = bringup_run(dev, card, drop_dir, conv)
+        shutil.rmtree(drop_dir, ignore_errors=True)
+        bring.update(drop_bytes=drop["bytes"], drop_write_s=write_s,
+                     **convert)
+        bring["phase_s"] = time.perf_counter() - t_phase
+        print(f"bringup phase: {bring['phase_s']:.3f} s", flush=True)
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        served = app_run(dev, card, conv, work)
+        served["phase_s"] = time.perf_counter() - t_phase
+        print(f"app phase: {served['phase_s']:.3f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"bringup_run": bring, "app_run": served}
+
+
 KERNELS = [
     # name, source, replaces (the TPU kernel's def line)
     ("fused_transformer_block", "upgpt_torch/csrc/fused_transformer.cu",
@@ -3266,7 +3707,9 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     one chain run, one UniPC run, the serving phase's batches, the fit
     phase's two `cli train` runs (steps, validation, image logs), its
     `cli sample` run, the eval phase's `cli test` and `cli train-vae`
-    runs, the laion phase's runs, and one micro_block run (there the
+    runs, the laion phase's runs, the bringup phase's `cli bringup` run
+    (`bringup_run`), the app phase's three requests (`app_run`), and one
+    micro_block run (there the
     wrapper's calls, the ones captured in its CUDA graphs included; the
     graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
@@ -3362,10 +3805,12 @@ def main() -> None:
 
     served = serve_run(dev, card)
     torch.cuda.empty_cache()
+    brought = bringup_and_app_run(dev, card)
+    torch.cuda.empty_cache()
     micro = micro_block_run()
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain, "unipc_run": unipc, "micro_block": micro,
-            "serve_run": served, **fitted, **laion}
+            "serve_run": served, **fitted, **laion, **brought}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]

@@ -114,6 +114,23 @@ def test_timestep_embedding_matches_jax(dim):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
 
 
+@pytest.mark.parametrize("dim", [128, 33])
+def test_timestep_embedding_ddpm_matches_jax(dim):
+    t = np.array([0, 1, 17, 999], np.int32)
+    want = jbasic.timestep_embedding_ddpm(jnp.asarray(t), dim)
+    got = tbasic.timestep_embedding_ddpm(_t(t), dim)
+    assert got.shape == (4, dim) and got.dtype == torch.float32
+    # the same float32 formula; libm's sin/cos of arguments up to 999 rad
+    # differ by a few ulp of the argument
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+    # sin first, then cos, and a zero pad column for an odd width
+    np.testing.assert_array_equal(got[0, :dim // 2].numpy(), 0.0)
+    np.testing.assert_array_equal(got[0, dim // 2:2 * (dim // 2)].numpy(),
+                                  1.0)
+    if dim % 2:
+        np.testing.assert_array_equal(got[:, -1].numpy(), 0.0)
+
+
 def test_silu_and_upsample_match_jax():
     rng = np.random.default_rng(2)
     x = rng.normal(size=(2, 3, 5, 4)).astype(np.float32)
@@ -247,7 +264,9 @@ def test_port_never_imports_jax():
         "          'upgpt_torch.eval.metrics', 'upgpt_torch.eval.lpips',\n"
         "          'upgpt_torch.eval.inception', 'upgpt_torch.eval.harness',\n"
         "          'upgpt_torch.training.vae_loss',\n"
-        "          'upgpt_torch.training.vae_trainer'):\n"
+        "          'upgpt_torch.training.vae_trainer',\n"
+        "          'upgpt_torch.convert.lightning', 'upgpt_torch.bringup',\n"
+        "          'upgpt_torch.app', 'upgpt_torch.data.prep'):\n"
         "    assert m in mods, m\n"
         "print(len(mods))\n"
     )

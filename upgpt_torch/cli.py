@@ -1,5 +1,5 @@
 """The port's command line: `train`, `sample`, `test`, `eval`,
-`train-vae`, `serve` and `data-verify`.
+`train-vae`, `convert`, `serve`, `bringup` and `data-verify`.
 
 Port of `upgpt_tpu.cli`'s subcommands of the same names. YAML configs merge
 left to right with key=value dotlist overrides, and models and datasets
@@ -26,6 +26,10 @@ the JAX package's `configs/deepfashion/*.yaml` drive the port unchanged:
     python -m upgpt_torch.cli serve --config configs/deepfashion/mm_512.yaml \\
         --ckpt weights/mm_512.pt --debug-encoder --batch 8 \\
         --sampler unipc --schedule karras --steps 8 sampling.eta=0.0
+    python -m upgpt_torch.cli convert --torch-ckpt interp_256.ckpt \\
+        --out weights/interp_256.pt --variant interp_256 --ema
+    python -m upgpt_torch.cli bringup --drop weights_drop --out bringup \\
+        --data-root /data/deepfashion_inshop
 
 `train` builds float32 master weights under the config's compute dtype
 (flax's `param_dtype`), from `trainer.seed`, and ships batches to the card
@@ -37,8 +41,11 @@ MS-SSIM, the FID with `--fid-weights`, a pt_inception .pth); `eval` scores
 a dump again. `train-vae` trains the first stage with the PatchGAN loss
 and writes `<logdir>/last` in the port's layout. `clip.*` in the config
 names the CLIP towers' weights (torch state dicts) and the BPE merges; the
-debug encoder (`--debug-encoder`) stands in without them. The JAX CLI's
-`convert`, `distill` and `bringup`, orbax weight directories,
+debug encoder (`--debug-encoder`) stands in without them. `convert` reads
+a released Lightning checkpoint (`convert.lightning`) into the serving
+layout that `sample`, `test`, `serve` and the demo app read; `bringup` is
+the weight-drop runbook (`upgpt_torch.bringup`), exiting 3 when its report
+is not accepted. The JAX CLI's `distill`, orbax weight directories,
 `--multihost`, `--dp`, `--tp` and the distilled-student sidecar are not
 ported yet; each names the ROADMAP item it waits on.
 """
@@ -249,7 +256,7 @@ def _fid_fn(cfg, args, device):
         raise SystemExit(
             f"--fid-weights {path}: a directory (the JAX CLI's converted "
             f"orbax tree); the port reads the pt_inception .pth, and orbax "
-            f"trees wait on the checkpoint bridges (ROADMAP §1 item 7)")
+            f"trees wait on a reader of their own (ROADMAP §1 item 11)")
     return InceptionFeatureFn(load_pt_inception(path), device)
 
 
@@ -456,6 +463,50 @@ def cmd_data_verify(cfg, args):
         raise SystemExit(2)
 
 
+def cmd_convert(cfg, args):
+    """A released Lightning checkpoint -> the port's serving layout
+    (`checkpoint.save_checkpoint`) at `--variant`'s geometry (JAX
+    `cmd_convert`); `--ema` takes the U-Net from the LitEma shadow. Host
+    work: nothing reaches the card. Returns the conversion record."""
+    from upgpt_torch.checkpoint import save_checkpoint
+    from upgpt_torch.convert.lightning import convert_lightning
+
+    try:
+        model, record = convert_lightning(args.torch_ckpt, args.variant,
+                                          ema=args.ema)
+    except ValueError as err:
+        raise SystemExit(f"convert: {err}")
+    Path(args.out).absolute().parent.mkdir(parents=True, exist_ok=True)
+    save_checkpoint(model, args.out)
+    print(f"converted {record['submodels']} (ema={record['ema']}) -> "
+          f"{args.out}")
+    if record["unread"]:
+        print(f"left unread: {json.dumps(record['unread'])}",
+              file=sys.stderr)
+    return record
+
+
+def cmd_bringup(cfg, args):
+    """The weight-drop runbook (`upgpt_torch.bringup`): inventory, convert
+    (EMA), the validators, the sampler check, CLIP, bench and eval, one
+    acceptance report (JAX `cmd_bringup`). The dotlist applies to the eval
+    step's `cli test`. Exits 3 when the report is not accepted."""
+    from upgpt_torch.bringup import run_bringup
+
+    report = run_bringup(
+        args.drop, args.out, variants=args.variants or None,
+        data_root=args.data_root, skip_bench=args.skip_bench,
+        skip_eval=args.skip_eval, geometry_override=args.geometry or None,
+        fid_reference=args.fid_reference,
+        skip_sampler_check=args.skip_sampler_check, device=args.device,
+        eval_overrides=args.overrides)
+    print(json.dumps({"accepted": report["accepted"],
+                      "report": str(Path(args.out) / "REPORT.md")}))
+    if not report["accepted"]:
+        raise SystemExit(3)
+    return report
+
+
 def _load_model(model_cfg, ckpt, device=None):
     """Build a config's model (on `device` where its params name none),
     load `ckpt` (either layout) into it and cast it to bf16 on the card."""
@@ -648,6 +699,41 @@ def parser() -> argparse.ArgumentParser:
                     help="upscale-stage config: serve the chained 256->512 "
                          "pipeline (one submit per 512px result)")
     sp.add_argument("--upscale-ckpt", default=None)
+
+    sp = _common(sub, "convert")
+    sp.add_argument("--torch-ckpt", required=True,
+                    help="a released Lightning .ckpt (the reference's "
+                         "key layout)")
+    sp.add_argument("--out", required=True,
+                    help="the port's checkpoint file to write")
+    sp.add_argument("--variant", default="interp_256",
+                    help="the zoo geometry to convert into")
+    sp.add_argument("--ema", action="store_true",
+                    help="convert the model_ema shadow weights (the "
+                         "released eval protocol)")
+
+    sp = _common(sub, "bringup")
+    sp.add_argument("--drop", required=True,
+                    help="directory with the released ckpts, the HF CLIP "
+                         "snapshot and the metric weights")
+    sp.add_argument("--out", default="bringup")
+    sp.add_argument("--data-root", default=None,
+                    help="DeepFashion root for the eval step")
+    sp.add_argument("--variants", nargs="*", default=None)
+    sp.add_argument("--geometry", default=None,
+                    help="override the converter's geometry (rehearsals "
+                         "on small synthetic drops)")
+    sp.add_argument("--skip-bench", action="store_true")
+    sp.add_argument("--skip-eval", action="store_true")
+    sp.add_argument("--skip-sampler-check", action="store_true",
+                    help="skip the DDIM-200 vs DDIM-50/UniPC/DPM++ "
+                         "ordering check on the converted weights")
+    sp.add_argument("--fid-reference", type=float, default=None,
+                    help="the reference pipeline's FID on the same pairs: "
+                         "accept only within 2%% of it")
+    sp.add_argument("--device", default="cuda",
+                    help="where the validators, the sampler check, CLIP, "
+                         "the bench and the eval run (default: the card)")
     return p
 
 
@@ -656,7 +742,8 @@ def main(argv=None):
     cfg = merge_configs(args.config, args.overrides) if args.config else {}
     return {"train": cmd_train, "sample": cmd_sample, "test": cmd_test,
             "eval": cmd_eval, "train-vae": cmd_train_vae,
-            "serve": cmd_serve,
+            "convert": cmd_convert, "serve": cmd_serve,
+            "bringup": cmd_bringup,
             "data-verify": cmd_data_verify}[args.cmd](cfg, args)
 
 

@@ -5,6 +5,8 @@ Port of `upgpt_tpu.ops.basic`:
   dtype, var = E[x^2] - E[x]^2 clamped at 0, result cast back to the input
   dtype (GroupNorm32, reference diffusionmodules/util.py:214-216).
 - `timestep_embedding`: the U-Net's cos-first sinusoid (util.py:151-171).
+- `timestep_embedding_ddpm`: the VAE `Model`'s sin-first fairseq
+  embedding (model.py:12-30); the released weights do not use it.
 - `silu`: x * sigmoid(x) (util.py:209-211).
 - `nearest_upsample_2x`: F.interpolate(scale_factor=2, mode="nearest").
 - `asymmetric_pad_hw`: the VAE downsample's (0, 1, 0, 1) zero pad
@@ -64,6 +66,21 @@ def timestep_embedding(
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+def timestep_embedding_ddpm(timesteps: torch.Tensor, dim: int
+                            ) -> torch.Tensor:
+    """(B,) timesteps -> (B, dim) float32 [sin(t*f), cos(t*f)] with
+    f = exp(-log(10000) * arange(half) / (half - 1))."""
+    half = dim // 2
+    scale = math.log(10000.0) / (half - 1)
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32,
+                                   device=timesteps.device) * -scale)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    out = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    if dim % 2:
+        out = F.pad(out, (0, 1))
+    return out
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
