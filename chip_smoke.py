@@ -38,6 +38,19 @@ CUDA toolkit. It
    draws at batch 2, then runs the train step at batch 12: one warm-up and
    five timed steps, counting kernel launches per step against the counts
    the model's structure gives;
+   distillation: re-draws interp_256 the same way, checks one
+   distillation update (the teacher eps under no_grad, the student its v
+   copy) of the kernel path against the plain path at batch 2 (loss and
+   update), writes the teacher's checkpoint and runs `python -m
+   upgpt_torch.cli distill --synthetic` in-process (8 -> 4 -> 2 steps on
+   the karras grid, two adapt updates and three a stage at batch 12),
+   each update's launches held to `expected_distill_counts`: the
+   sidecar's grid, the history, the student's weights moved; then the
+   student as the teacher of a chained run (2 -> 1 on its own grid, no
+   adapt phase), `cli sample` from it at batch 12 on its 2-step grid (12
+   JPEGs of 256x192) and one batch served through `cli._build_serving`,
+   their launches against the structure; ms per update, peak memory and
+   `cli distill`'s wall split;
    the fit: writes a DeepFashion-shaped tree at interp_256's sizes (48
    training pairs with the config's men_factor, 24 validation pairs, from
    a seed) and runs `python -m upgpt_torch.cli train` in-process on
@@ -1446,6 +1459,338 @@ def train_run(dev, card: str) -> dict:
             "ms_per_step": [1e3 * t for t in times],
             "img_per_s": TRAIN_BATCH / ms * 1e3, "losses": losses,
             "peak_memory_gib": peak_gb, **e2e}
+
+
+# the distill phase: `cli distill --synthetic` at interp_256's full width
+# from a re-drawn teacher (float32 masters, bf16 compute, the training
+# kernels on), 8 -> 4 -> 2 steps on the karras grid, two adapt updates and
+# three a stage at batch 12; then the student chained 2 -> 1, sampled by
+# `cli sample` and served through `cli._build_serving` on its grid
+DISTILL_BATCH, DISTILL_START, DISTILL_END = 12, 8, 2
+DISTILL_STAGE_STEPS, DISTILL_ADAPT_STEPS, DISTILL_CHAIN_STEPS = 3, 2, 2
+# One distillation update at batch 2, kernel path vs plain path on the same
+# float32 masters, batch and draws (the teacher eps, the student its v
+# copy): |loss difference| / loss and the relative L2 of the update
+# (parameters after minus before). The teacher's two sub-steps and the
+# student each round to bf16 at different places on the two paths, and
+# the x target divides by a_next - (s_next / s_t) a_t, which can amplify
+# that difference; the update is Adam's first step, about lr *
+# sign(gradient), which flips wherever a gradient entry is below that
+# noise, as in the train step. Measured on an H100 (700 W): 1.091e-4
+# (loss) and 0.1448 (update), so each bound has a margin of 3x or more.
+DISTILL_LOSS_REL = 5e-4
+DISTILL_UPDATE_REL_L2 = 0.5
+
+
+def expected_distill_counts(model, b: int = DISTILL_BATCH,
+                            teacher_evals: int = 2) -> dict:
+    """Kernel launches per distillation update (`teacher_evals` 2) or
+    eps->v adaptation update (1), from the model's structure: the
+    student's forward and backward, as a train step launches them
+    (`expected_train_counts`, one VAE encode shared by both models), and
+    the teacher's U-Net forwards under no_grad: K1 for each fused block
+    (`kv=None`, with nothing saved for a backward, so no recompute and no
+    K4) and K5 for each GroupNorm its gate takes."""
+    step = expected_train_counts(model, b)
+    forward = expected_train_counts(model, b, backward=False)
+    for key in ("fused_transformer_block", "fused_group_norm",
+                "fused_group_norm_plain_routes"):
+        step[key] += teacher_evals * forward[key]
+    return step
+
+
+def distill_kernel_vs_plain(model, plain, dev, seed: int) -> dict:
+    """One distillation update (stage 0 of DISTILL_START -> DISTILL_START
+    / 2, the teacher eps, the student its v copy) with the kernels on
+    (`model`) and off (`plain`) on the same weights, batch (2) and draws,
+    held to the DISTILL_* gates."""
+    from upgpt_torch.training import distill as td
+    from upgpt_torch.training.train_state import create_train_state
+
+    plain.load_state_dict(model.state_dict())
+    small = _train_batch(model, 2, dev, seed=seed)
+    grids = td.make_distill_grids(model.schedule, DISTILL_START, DISTILL_END,
+                                  method="karras")
+    tables = td.make_stage_tables(model.schedule, grids[0])
+    result = {}
+    for tag, teacher in (("kernel", model), ("plain", plain)):
+        student = td.v_student(teacher)
+        teacher.requires_grad_(False)
+        draws = td.distill_draws(student, 2, tables.num_steps,
+                                 torch.Generator(device=dev).manual_seed(
+                                     seed + 1))
+        st = create_train_state(student, LEARNING_RATE,
+                                scheduler=lambda step: 1.0, use_ema=False,
+                                weight_decay=0.0)
+        before = [p.detach().clone() for p in st.params]
+        st, metrics = td.distill_step(student, st, teacher, "eps", small,
+                                      tables, draws=draws)
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f"{tag} path: non-finite distill metrics "
+                               f"{metrics}")
+        result[tag] = ({k: v.item() for k, v in metrics.items()},
+                       [a.detach() - b for a, b in zip(st.params, before)])
+        del st, student, before
+    (mk, uk), (mp, up) = result["kernel"], result["plain"]
+    e2e = {"distill_loss_rel": abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
+           "distill_update_rel_l2": _rel_l2_lists(uk, up),
+           "teacher_gap_kernel": mk["teacher_gap"],
+           "teacher_gap_plain": mp["teacher_gap"]}
+    print(f"distill end to end (batch 2, one update, {len(grids[0])} -> "
+          f"{tables.num_steps} steps): loss kernel {mk['loss']:.6f} plain "
+          f"{mp['loss']:.6f} (rel {e2e['distill_loss_rel']:.3e}), x-mse "
+          f"kernel {mk['loss_x']:.6f} plain {mp['loss_x']:.6f}, teacher "
+          f"gap kernel {mk['teacher_gap']:.6f} plain "
+          f"{mp['teacher_gap']:.6f}, update rel L2 "
+          f"{e2e['distill_update_rel_l2']:.3e}", flush=True)
+    if (e2e["distill_loss_rel"] > DISTILL_LOSS_REL
+            or e2e["distill_update_rel_l2"] > DISTILL_UPDATE_REL_L2):
+        raise RuntimeError(f"distill: kernel path disagrees with plain "
+                           f"path: {e2e}")
+    model.zero_grad(set_to_none=True)
+    return e2e
+
+
+def _distill_cli(args: list, expected: dict, adapt: int, stages: int):
+    """`cli distill` in-process with its two step functions wrapped: every
+    update's launches against `expected` ({"adapt", "distill"}), the run's
+    against their sum. Returns (result, adapt ms, distill ms, run
+    launches), the ms from CUDA events around each update."""
+    from upgpt_torch import cli
+    from upgpt_torch.training import distill as td
+
+    probes = {"adapt": _StepProbe(td.adapt_step, "adapt_step"),
+              "distill": _StepProbe(td.distill_step, "distill_step")}
+    td.adapt_step, td.distill_step = probes["adapt"], probes["distill"]
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        result = cli.main(args)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    finally:
+        td.adapt_step, td.distill_step = probes["adapt"].fn, probes[
+            "distill"].fn
+    for kind, n in (("adapt", adapt), ("distill", stages)):
+        got = [r["launches"] for r in probes[kind].records]
+        if len(got) != n or any(c != expected[kind] for c in got):
+            raise RuntimeError(f"cli distill {kind} updates: {len(got)} "
+                               f"({n} expected), launches {got[:2]}, "
+                               f"expected {expected[kind]} per update")
+    want = {k: adapt * expected["adapt"][k] + stages * expected["distill"][k]
+            for k in counts}
+    if counts != want:
+        raise RuntimeError(f"cli distill launches {counts}, expected {want}")
+    return result, probes["adapt"].ms(), probes["distill"].ms(), counts
+
+
+def distill_run(dev, card: str) -> dict:
+    """The distill phase in a temporary directory under
+    `upgpt_torch/_build`, removed after: kernel vs plain for one update,
+    `cli distill --synthetic` from a teacher checkpoint it writes, the
+    chained run from the student, `cli sample` and one served batch of the
+    student. Returns the paths `distill_run` (both `cli distill` runs),
+    `distill_sample` and `distill_serve`."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from upgpt_torch import cli
+    from upgpt_torch.checkpoint import read_weights, save_checkpoint
+    from upgpt_torch.config import instantiate_from_config, merge_configs
+    from upgpt_torch.data.tree import write_fashion_tree
+    from upgpt_torch.training import distill as td
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    def build(kernels: bool):
+        return build_latent_diffusion(
+            "interp_256", dtype="bfloat16", param_dtype="float32",
+            device=dev, use_flash_attention=kernels,
+            use_fused_transformer=kernels, use_fused_groupnorm=kernels)
+
+    t_phase = time.perf_counter()
+    model = build(True)
+    _redraw(model, seed=91, dev=dev)
+    plain = build(False)
+    e2e = distill_kernel_vs_plain(model, plain, dev, 92)
+    del plain
+    expected = {"adapt": expected_distill_counts(model, teacher_evals=1),
+                "distill": expected_distill_counts(model)}
+    grids = td.make_distill_grids(model.schedule, DISTILL_START, DISTILL_END,
+                                  method="karras")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, "configs", "deepfashion", "interp_256.yaml")
+    build_dir = os.path.join(repo, "upgpt_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    work = tempfile.mkdtemp(dir=build_dir, prefix="distill-")
+    try:
+        teacher = os.path.join(work, "teacher.pt")
+        save_checkpoint(model, teacher)
+        del model
+        torch.cuda.empty_cache()
+        tree = write_fashion_tree(os.path.join(work, "tree"),
+                                  {"validation": (DISTILL_BATCH, 0)},
+                                  seed=93)
+        dotlist = [f"data.{s}.params.{k}={tree[v]}"
+                   for s in ("train", "validation", "test")
+                   for k, v in (("folder", "folder"),
+                                ("data_file", "data_file"))]
+        dotlist += [f"data.{s}.params.pair_file=['{tree['validation']}']"
+                    for s in ("train", "validation", "test")]
+        dotlist += [f"model.params.{k}=True" for k in FIT_KERNELS]
+        student = os.path.join(work, "student.pt")
+
+        # --- cli distill --synthetic: 8 -> 4 -> 2 ---
+        stages = len(grids) - 1
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result, adapt_ms, step_ms, counts = _distill_cli(
+            ["distill", "--base", config, "--teacher-ckpt", teacher,
+             "--out", student, "--start-steps", str(DISTILL_START),
+             "--end-steps", str(DISTILL_END), "--stage-steps",
+             str(DISTILL_STAGE_STEPS), "--adapt-steps",
+             str(DISTILL_ADAPT_STEPS), "--batch", str(DISTILL_BATCH),
+             "--grid", "karras", "--synthetic"] + dotlist, expected,
+            DISTILL_ADAPT_STEPS, stages * DISTILL_STAGE_STEPS)
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        meta = json.load(open(student + ".distill.json"))
+        hist = meta["history"]
+        if (meta["parameterization"] != "v"
+                or meta["timesteps"] != grids[-1].tolist()
+                or [(h["stage"], h["steps"]) for h in hist]
+                != [(-1, DISTILL_START)] + [(i, len(g)) for i, g in
+                                            enumerate(grids[1:])]
+                or not all(math.isfinite(h["loss"]) for h in hist)):
+            raise RuntimeError(f"cli distill sidecar {meta}")
+        t_weights, _ = read_weights(teacher, dev)
+        moved = sum(not torch.equal(t_weights[n], p.detach()) for n, p in
+                    result["student"].named_parameters() if n in t_weights)
+        if moved == 0:
+            raise RuntimeError("the student's weights equal the teacher's")
+        n_trainable = len(t_weights)
+        del t_weights, result["student"]
+        torch.cuda.empty_cache()
+        print(f"cli distill --synthetic interp_256 batch {DISTILL_BATCH}, "
+              f"{DISTILL_START} -> {DISTILL_END} steps on the karras grid "
+              f"{grids[-1].tolist()}: adapt "
+              f"{' '.join(f'{x:.2f}' for x in adapt_ms)} ms/update, distill "
+              f"{' '.join(f'{x:.2f}' for x in step_ms)} ms/update (median "
+              f"{float(np.median(step_ms)):.2f}); wall {wall:.3f} s split "
+              f"{json.dumps(result['seconds'])}; peak "
+              f"memory {peak_gb:.3f} GiB; {moved}/{n_trainable} tensors "
+              f"moved; losses {[round(h['loss'], 6) for h in hist]}; "
+              f"launches per distill update {expected['distill']}, per "
+              f"adapt update {expected['adapt']} on {card}", flush=True)
+
+        # --- chained: the student as the teacher, 2 -> 1 ---
+        chained = os.path.join(work, "student1.pt")
+        t0 = time.perf_counter()
+        result2, _, chain_ms, counts2 = _distill_cli(
+            ["distill", "--base", config, "--teacher-ckpt", student,
+             "--out", chained, "--end-steps", "1", "--stage-steps",
+             str(DISTILL_CHAIN_STEPS), "--batch", str(DISTILL_BATCH),
+             "--synthetic"] + dotlist, expected, 0, DISTILL_CHAIN_STEPS)
+        chain_wall = time.perf_counter() - t0
+        meta2 = json.load(open(chained + ".distill.json"))
+        if (meta2["parameterization"] != "v"
+                or meta2["timesteps"] != grids[-1][1::2].tolist()
+                or [(h["stage"], h["steps"]) for h in meta2["history"]]
+                != [(0, 1)]):
+            raise RuntimeError(f"chained cli distill sidecar {meta2}")
+        del result2
+        torch.cuda.empty_cache()
+        print(f"cli distill chained from the student (v teacher, its grid "
+              f"continued, no adapt phase): {meta['timesteps']} -> "
+              f"{meta2['timesteps']}, {' '.join(f'{x:.2f}' for x in chain_ms)}"
+              f" ms/update, wall {chain_wall:.3f} s", flush=True)
+
+        # --- the student sampled: cli sample at batch 12, its 2-step grid
+        out_dir = os.path.join(work, "samples")
+        model_cfg = merge_configs([config], dotlist)["model"]
+        with torch.device("meta"):
+            meta_model = instantiate_from_config(
+                {**model_cfg, "params": {**model_cfg["params"],
+                                         "device": "meta"}})
+        expected_sample = expected_sampling_counts(
+            meta_model, DISTILL_BATCH, context_tokens(meta_model),
+            len(grids[-1]))
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        imgs = cli.main(["sample", "--base", config, "--debug-encoder",
+                         "--ckpt", student, "--batch", str(DISTILL_BATCH),
+                         "--steps", "50", "--out", out_dir] + dotlist)
+        sample_wall = time.perf_counter() - t0
+        sample_counts = _read_counts()
+        files = sorted(os.listdir(out_dir))
+        shapes = {np.asarray(Image.open(os.path.join(out_dir, f))).shape
+                  for f in files}
+        if (len(files) != DISTILL_BATCH or shapes != {(256, 192, 3)}
+                or not np.isfinite(imgs).all()):
+            raise RuntimeError(f"cli sample wrote {files}, shapes {shapes}")
+        if sample_counts != expected_sample:
+            raise RuntimeError(f"student cli sample launches "
+                               f"{sample_counts}, expected {expected_sample}")
+
+        # --- the student served: one batch through cli._build_serving ---
+        args = cli.parser().parse_args([
+            "serve", "--ckpt", student, "--debug-encoder", "--batch",
+            str(DISTILL_BATCH), "--steps", "50", "--host", "127.0.0.1",
+            "--port", "0"])
+        cfg = {"model": {"target": "upgpt_torch.zoo.build_latent_diffusion",
+                         "params": {"variant": "interp_256",
+                                    "dtype": "bfloat16"}}}
+        engine, builder, label = cli._build_serving(cfg, args)
+        if label != f"distilled-{len(grids[-1])} {grids[-1].tolist()}":
+            raise RuntimeError(f"served student labelled {label!r}")
+        served = engine.pipeline.model
+        expected_serve = expected_sampling_counts(
+            served, DISTILL_BATCH, context_tokens(served), len(grids[-1]))
+        rng = np.random.default_rng(94)
+        batch = engine._pack([([builder.build(
+            {"txt": f"a person in outfit {i}", "seed": i,
+             "smpl": rng.normal(size=(1, 85)).tolist()})], None, None)
+            for i in range(DISTILL_BATCH)])
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        host = engine.fetch(*engine.dispatch(batch, 95))
+        serve_s = time.perf_counter() - t0
+        serve_counts = _read_counts()
+        if (host.shape != (DISTILL_BATCH, 256, 192, 3)
+                or host.min() == host.max()):
+            raise RuntimeError(f"served student batch {host.shape}, range "
+                               f"{host.min()}..{host.max()}")
+        if serve_counts != expected_serve:
+            raise RuntimeError(f"served student launches {serve_counts}, "
+                               f"expected {expected_serve}")
+        del engine, builder, served
+        print(f"the student sampled: cli sample {DISTILL_BATCH} JPEGs of "
+              f"256x192 on its grid {grids[-1].tolist()} (eta-0 DDIM, "
+              f"--steps 50 not applied) in {sample_wall:.3f} s of wall "
+              f"(model build and load included); served through "
+              f"cli._build_serving ({label}) one batch of {DISTILL_BATCH} "
+              f"to uint8 in {serve_s:.4f} s; launches {sample_counts}",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"distill phase: {phase_s:.3f} s on {card}", flush=True)
+    run = {k: counts[k] + counts2[k] for k in counts}
+    return {"distill_run": {
+        "launches": run, "per_update": expected["distill"],
+        "per_adapt_update": expected["adapt"],
+        "adapt_ms": adapt_ms, "distill_ms": step_ms,
+        "median_distill_ms": float(np.median(step_ms)),
+        "chained_ms": chain_ms, "wall_s": wall, "chained_wall_s": chain_wall,
+        "seconds": result["seconds"], "peak_memory_gib": peak_gb,
+        "history": hist, "phase_s": phase_s, **e2e},
+        "distill_sample": {"launches": sample_counts, "wall_s": sample_wall},
+        "distill_serve": {"launches": serve_counts, "batch_s": serve_s}}
 
 
 # the fit phase: `cli train` on a DeepFashion-shaped tree at interp_256's
@@ -3708,8 +4053,10 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     phase's two `cli train` runs (steps, validation, image logs), its
     `cli sample` run, the eval phase's `cli test` and `cli train-vae`
     runs, the laion phase's runs, the bringup phase's `cli bringup` run
-    (`bringup_run`), the app phase's three requests (`app_run`), and one
-    micro_block run (there the
+    (`bringup_run`), the app phase's three requests (`app_run`), the
+    distill phase's two `cli distill` runs (`distill_run`), its student's
+    `cli sample` (`distill_sample`) and served batch (`distill_serve`),
+    and one micro_block run (there the
     wrapper's calls, the ones captured in its CUDA graphs included; the
     graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
@@ -3789,6 +4136,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     training = train_run(dev, card)
     torch.cuda.empty_cache()
+    distilled = distill_run(dev, card)
+    torch.cuda.empty_cache()
     fitted = fit_eval_and_vae_run(dev, card, training["ms_per_step"])
     torch.cuda.empty_cache()
     laion = clip_and_laion_run(dev, card)
@@ -3810,7 +4159,8 @@ def main() -> None:
     micro = micro_block_run()
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain, "unipc_run": unipc, "micro_block": micro,
-            "serve_run": served, **fitted, **laion, **brought}
+            "serve_run": served, **fitted, **laion, **brought,
+            **distilled}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]

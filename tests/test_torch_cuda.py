@@ -794,6 +794,69 @@ def test_tiny_train_step_moves_every_launch_counter(dev):
     assert any(not torch.equal(a, p) for a, p in zip(start, state.params))
 
 
+@pytest.mark.cuda
+def test_tiny_distill_update_kernels_match_plain(dev):
+    """One distillation update (the teacher eps under no_grad, the student
+    its v copy) with the kernels on and off, on the same float32 masters,
+    batch and draws: every kernel counter moves on the kernel path, the
+    teacher's blocks run K1 without a recompute, and the loss agrees
+    within 2e-2 (bf16 rounding in three U-Net evals on both sides)."""
+    from upgpt_torch.training import distill as td
+    from upgpt_torch.training.train_state import create_train_state
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    def build(kernels):
+        return build_latent_diffusion(
+            "tiny", dtype="bfloat16", param_dtype="float32", device=dev,
+            use_flash_attention=kernels, use_fused_transformer=kernels,
+            use_fused_groupnorm=kernels)
+
+    model, plain = build(True), build(False)
+    g = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                    / max(1, p[0].numel()) ** 0.5 if p.dim() > 1
+                    else 1 + 0.1 * torch.randn(p.shape, generator=g,
+                                               device=dev))
+    plain.load_state_dict(model.state_dict())
+    b = 2
+    batch = {"image": torch.rand(b, 64, 48, 3, generator=g, device=dev) * 2 - 1,
+             "person_mask": -torch.ones(b, 32, 24, 1, device=dev),
+             "text_emb": torch.randn(b, 77, 768, generator=g, device=dev),
+             "style_emb": torch.randn(b, 9, 768, generator=g, device=dev),
+             "smpl": torch.randn(b, 1, 85, generator=g, device=dev),
+             "loss_w": torch.ones(b, 32, 24, 1, device=dev)}
+    tables = td.make_stage_tables(model.schedule, td.make_distill_grids(
+        model.schedule, 8, 4, method="karras")[0])
+    counters = [ft.fused_transformer_block, fg.fused_group_norm,
+                fa.flash_attention, fa.flash_backward_dq,
+                fa.flash_backward_dkv]
+    losses = {}
+    for tag, teacher in (("kernel", model), ("plain", plain)):
+        student = td.v_student(teacher)
+        teacher.requires_grad_(False)
+        draws = td.distill_draws(student, b, tables.num_steps,
+                                 torch.Generator(device=dev).manual_seed(9))
+        state = create_train_state(student, 1e-4)
+        before = [f.launches for f in counters]
+        state, metrics = td.distill_step(student, state, teacher, "eps",
+                                         batch, tables, draws=draws)
+        torch.cuda.synchronize()
+        moved = [f.launches - n for f, n in zip(counters, before)]
+        losses[tag] = metrics["loss"].item()
+        assert all(torch.isfinite(v) for v in metrics.values())
+        if tag == "kernel":
+            assert all(m > 0 for m in moved), moved
+            # the teacher's two evals and the student's forward, each over
+            # the same blocks: three K1 launches per block
+            assert moved[0] % 3 == 0
+        else:
+            assert moved == [0] * len(counters), moved
+    assert abs(losses["kernel"] - losses["plain"]) <= 2e-2 * abs(
+        losses["plain"]), losses
+
+
 def _selfattn_inputs(dev, b, t, c, heads, seed=0):
     """bf16 tokens and attn1 weights in both layouts (std 1/sqrt(C),
     a float32 bias)."""

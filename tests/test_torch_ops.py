@@ -266,7 +266,9 @@ def test_port_never_imports_jax():
         "          'upgpt_torch.training.vae_loss',\n"
         "          'upgpt_torch.training.vae_trainer',\n"
         "          'upgpt_torch.convert.lightning', 'upgpt_torch.bringup',\n"
-        "          'upgpt_torch.app', 'upgpt_torch.data.prep'):\n"
+        "          'upgpt_torch.app', 'upgpt_torch.data.prep',\n"
+        "          'upgpt_torch.training.distill',\n"
+        "          'upgpt_torch.data.synthetic'):\n"
         "    assert m in mods, m\n"
         "print(len(mods))\n"
     )

@@ -204,15 +204,18 @@ def test_chained_upscale_serving(pipe):
 
 @pytest.mark.parametrize("flag,item", [("dp", "item 10"),
                                        ("tp", "item 10"),
-                                       ("sidecar", "item 8")])
+                                       ("sidecar", "R2")])
 def test_unported_serving_options_are_refused(tmp_path, flag, item):
     ckpt = tmp_path / "model.pt"
     if flag == "sidecar":
-        (tmp_path / "model.pt.distill.json").write_text("{}")
+        # a distilled student under the chain would sample off its grid
+        (tmp_path / "model.pt.distill.json").write_text(
+            '{"parameterization": "v", "timesteps": [237, 999]}')
     args = argparse.Namespace(
         ckpt=str(ckpt), debug_encoder=True, batch=4, max_delay=0.05,
         seed=0, steps=STEPS, sampler="ddim", schedule=None, in_flight=2,
-        upscale_base=None, upscale_ckpt=None,
+        upscale_base=["upscale.yaml"] if flag == "sidecar" else None,
+        upscale_ckpt=None,
         dp=2 if flag == "dp" else 1, tp=2 if flag == "tp" else 1)
     cfg = {"model": {"target": "upgpt_torch.zoo.build_latent_diffusion",
                      "params": {"variant": "tiny", "device": "cpu"}}}
@@ -363,10 +366,14 @@ def test_targets_resolve_to_the_port():
 
     assert (config.get_obj_from_str(
         "upgpt_tpu.data.deepfashion.DeepFashionPair") is DeepFashionPair)
+    from upgpt_torch.training.distill import distill_step
+
+    assert (config.get_obj_from_str(
+        "upgpt_tpu.training.distill.distill_step") is distill_step)
     # a target the port does not have names itself
-    with pytest.raises(ImportError, match="upgpt_tpu.training.distill"):
+    with pytest.raises(ImportError, match="upgpt_tpu.parallel.mesh"):
         config.instantiate_from_config(
-            {"target": "upgpt_tpu.training.distill.distill_step"})
+            {"target": "upgpt_tpu.parallel.mesh.create_mesh"})
     from upgpt_torch.eval.harness import dump_test_results
 
     assert (config.get_obj_from_str(

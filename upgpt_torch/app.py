@@ -262,7 +262,12 @@ def build_state(args) -> Tuple[DemoState, str]:
         else "float32", **(model_cfg.get("params") or {}),
         "device": args.device}
     if args.ckpt:
-        model = _load_model(model_cfg, args.ckpt)
+        model, grid = _load_model(model_cfg, args.ckpt)
+        if grid is not None:
+            raise SystemExit(
+                f"{args.ckpt}: a distilled student; it samples only on its "
+                f"own {len(grid)}-step grid, and the app samples at DDIM-50 "
+                f"and UniPC-8 (serve it with `cli serve`)")
         mode = ""
     else:
         torch.manual_seed(0)
@@ -274,8 +279,11 @@ def build_state(args) -> Tuple[DemoState, str]:
         if not args.upscale_ckpt:
             raise SystemExit("--upscale-base needs --upscale-ckpt")
         up_cfg = merge_configs(args.upscale_base, [])
-        upscale = _load_model(up_cfg["model"], args.upscale_ckpt,
-                              device=str(model.device))
+        upscale, up_grid = _load_model(up_cfg["model"], args.upscale_ckpt,
+                                       device=str(model.device))
+        if up_grid is not None:
+            raise SystemExit(f"{args.upscale_ckpt}: a distilled student's "
+                             f"sidecar; the upscale stage has none")
     return DemoState(model, encoder, args.pose_dir, upscale), mode
 
 

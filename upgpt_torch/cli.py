@@ -1,5 +1,5 @@
 """The port's command line: `train`, `sample`, `test`, `eval`,
-`train-vae`, `convert`, `serve`, `bringup` and `data-verify`.
+`train-vae`, `convert`, `serve`, `bringup`, `data-verify` and `distill`.
 
 Port of `upgpt_tpu.cli`'s subcommands of the same names. YAML configs merge
 left to right with key=value dotlist overrides, and models and datasets
@@ -30,6 +30,10 @@ the JAX package's `configs/deepfashion/*.yaml` drive the port unchanged:
         --out weights/interp_256.pt --variant interp_256 --ema
     python -m upgpt_torch.cli bringup --drop weights_drop --out bringup \\
         --data-root /data/deepfashion_inshop
+    python -m upgpt_torch.cli distill \\
+        --base configs/deepfashion/interp_256.yaml --debug-encoder \\
+        --teacher-ckpt weights/interp_256.pt --out weights/student.pt \\
+        --start-steps 64 --end-steps 4 --synthetic
 
 `train` builds float32 master weights under the config's compute dtype
 (flax's `param_dtype`), from `trainer.seed`, and ships batches to the card
@@ -45,9 +49,14 @@ debug encoder (`--debug-encoder`) stands in without them. `convert` reads
 a released Lightning checkpoint (`convert.lightning`) into the serving
 layout that `sample`, `test`, `serve` and the demo app read; `bringup` is
 the weight-drop runbook (`upgpt_torch.bringup`), exiting 3 when its report
-is not accepted. The JAX CLI's `distill`, orbax weight directories,
-`--multihost`, `--dp`, `--tp` and the distilled-student sidecar are not
-ported yet; each names the ROADMAP item it waits on.
+is not accepted. `distill` halves a teacher's sampling steps
+(`training.distill`) on the synthetic rig or the config's train split and
+writes the v-parameterised student with its grid sidecar
+`<out>.distill.json`; `sample`, `test` and `serve` read a checkpoint's
+sidecar, rebuild the model at its parameterisation and sample eta-0 DDIM
+on its grid, whatever --steps and --sampler say. Orbax weight
+directories, `--multihost`, `--dp` and `--tp` are not ported yet; each
+names the ROADMAP item it waits on.
 """
 
 from __future__ import annotations
@@ -98,6 +107,11 @@ def _build_cond_encoder(cfg, model, allow_debug=False):
     return DebugConditioningEncoder(context_dim=model.config.context_dim)
 
 
+def _sidecar_path(ckpt) -> Path:
+    """Where `cli distill` writes a student's grid sidecar."""
+    return Path(str(Path(ckpt).absolute()) + ".distill.json")
+
+
 def _refuse_unported(args) -> None:
     if getattr(args, "multihost", False):
         raise SystemExit("--multihost: multi-host training waits on "
@@ -108,13 +122,20 @@ def _refuse_unported(args) -> None:
     if (getattr(args, "tp", 1) or 1) > 1:
         raise SystemExit("--tp > 1: tensor-parallel serving waits on "
                          "torch.distributed (ROADMAP §1 item 10)")
-    for ckpt in (getattr(args, "ckpt", None),
-                 getattr(args, "upscale_ckpt", None)):
-        if ckpt and Path(str(Path(ckpt).absolute()) + ".distill.json"
-                         ).exists():
-            raise SystemExit(f"{ckpt}: a distilled-student sidecar; "
-                             f"distillation is not ported (ROADMAP §1 "
-                             f"item 8)")
+    up_ckpt = getattr(args, "upscale_ckpt", None)
+    if up_ckpt and _sidecar_path(up_ckpt).exists():
+        raise SystemExit(
+            f"{up_ckpt}: a distilled student's sidecar beside the upscale "
+            f"checkpoint; distillation makes no upscale students (the "
+            f"ladder conditions on text, style and pose, and the upscale "
+            f"stage has no pose)")
+    if getattr(args, "upscale_base", None) and _sidecar_path(
+            args.ckpt).exists():
+        raise SystemExit(
+            f"{args.ckpt}: a distilled student ({_sidecar_path(args.ckpt)}) "
+            f"under --upscale-base: the chain would sample it at --steps / "
+            f"--sampler, off the only grid it was trained on (JAX does, "
+            f"ROADMAP §3 R2); serve it without the upscale stage")
 
 
 def _loaders(cfg, batch_size, compact=False, train_transform=None):
@@ -208,17 +229,16 @@ def cmd_sample(cfg, args):
     train) from a checkpoint and write JPEGs (JAX `cmd_sample`)."""
     from PIL import Image
 
-    from upgpt_torch.inference.pipeline import GenerationPipeline
     from upgpt_torch.training.trainer import Trainer, to_device
 
     _refuse_unported(args)
-    model = _load_model(cfg["model"], args.ckpt)
+    model, grid = _load_model(cfg["model"], args.ckpt)
     enc = _build_cond_encoder(cfg, model,
                               allow_debug=getattr(args, "debug_encoder",
                                                   False))
     samp = cfg.get("sampling") or {}
-    pipe = GenerationPipeline(
-        model, num_steps=args.steps or samp.get("ddim_steps", 200),
+    pipe = _pipeline(
+        model, grid, num_steps=args.steps or samp.get("ddim_steps", 200),
         eta=samp.get("eta", 1.0),
         guidance_scale=samp.get("guidance_scale", 1.0),
         sampler=args.sampler or samp.get("sampler", "ddim"),
@@ -280,18 +300,17 @@ def cmd_test(cfg, args):
     {"metrics", "seconds"}: the host wall of the sampling, the recon, the
     dump and the metrics."""
     from upgpt_torch.eval.harness import dump_test_results, evaluate_dirs
-    from upgpt_torch.inference.pipeline import GenerationPipeline
     from upgpt_torch.training.trainer import Trainer, to_device
 
     _refuse_unported(args)
-    model = _load_model(cfg["model"], args.ckpt)
+    model, grid = _load_model(cfg["model"], args.ckpt)
     enc = _build_cond_encoder(cfg, model,
                               allow_debug=getattr(args, "debug_encoder",
                                                   False))
     fid_fn = _fid_fn(cfg, args, model.device)
     samp = cfg.get("sampling") or {}
-    pipe = GenerationPipeline(
-        model, num_steps=args.steps or samp.get("ddim_steps", 200),
+    pipe = _pipeline(
+        model, grid, num_steps=args.steps or samp.get("ddim_steps", 200),
         eta=samp.get("eta", 1.0),
         sampler=args.sampler or samp.get("sampler", "ddim"),
         schedule_method=args.schedule or samp.get("schedule", "uniform"))
@@ -507,33 +526,190 @@ def cmd_bringup(cfg, args):
     return report
 
 
+# the batch keys the distillation losses read
+_DISTILL_KEYS = ("image", "person_mask", "text_emb", "style_emb", "smpl",
+                 "loss_w")
+
+
+def cmd_distill(cfg, args):
+    """Progressive distillation (`training.distill`, JAX `cmd_distill`):
+    halve a trained teacher's sampling steps from --start-steps to
+    --end-steps on the synthetic rig (--synthetic) or the config's train
+    split, then write the v-parameterised student in the serving layout
+    (VAE included) and its grid sidecar `<out>.distill.json`
+    ({"parameterization", "timesteps", "history"}), which `sample`, `test`
+    and `serve` read. The teacher comes from either checkpoint layout (EMA
+    first) as float32 masters under the config's compute dtype. A teacher
+    with a sidecar (a student) is built at the sidecar's parameterisation
+    and the ladder continues its grid, with no adapt phase; JAX's CLI
+    drops the sidecar (ROADMAP §3 R15). Prints JAX's one-line summary and
+    returns {"student", "grid", "history", "seconds"}: the wall of the
+    load, the adapt phase, the stages and the write."""
+    from upgpt_torch.checkpoint import load_checkpoint, save_checkpoint
+    from upgpt_torch.training.distill import (
+        DistillConfig, progressive_distill,
+    )
+    from upgpt_torch.training.trainer import to_device
+
+    try:
+        dcfg = DistillConfig(
+            start_steps=args.start_steps, end_steps=args.end_steps,
+            steps_per_stage=args.stage_steps, learning_rate=args.lr,
+            grid_method=args.grid, use_ema=True, ema_decay=args.ema_decay,
+            adapt_steps=args.adapt_steps)
+    except ValueError as err:
+        raise SystemExit(f"distill: {err}")
+    t0 = time.perf_counter()
+    sidecar = _read_sidecar(args.teacher_ckpt)
+    model_cfg = dict(cfg["model"])
+    params = {"param_dtype": "float32", **(model_cfg.get("params") or {})}
+    if sidecar is not None:
+        params["parameterization"] = sidecar[0]
+    model_cfg["params"] = params
+    teacher = load_checkpoint(instantiate_from_config(model_cfg),
+                              args.teacher_ckpt)
+    start_grid = (None if sidecar is None
+                  else _checked_grid(teacher, args.teacher_ckpt, sidecar[1]))
+    close = None
+    if args.synthetic:
+        from upgpt_torch.data.synthetic import SyntheticPairs
+
+        data_iter = SyntheticPairs.for_model(
+            teacher.config, n_samples=384, split="train").iterator(
+                args.batch, seed=3)
+    else:
+        import itertools
+
+        enc = _build_cond_encoder(cfg, teacher,
+                                  allow_debug=getattr(args, "debug_encoder",
+                                                      False))
+        loader = _loaders(cfg, args.batch)["train"]
+        close = getattr(loader, "close", None)
+        data_iter = (to_device(enc.encode_batch(raw), _DISTILL_KEYS,
+                               teacher.device)
+                     for epoch in itertools.count()
+                     for raw in loader.epoch(epoch))
+    seconds = {"load": time.perf_counter() - t0}
+    stage_starts = []
+
+    def log(line: str) -> None:
+        # a stage's first line ("stage k: ...") marks where it starts, and
+        # stage 0's where the adapt phase ends
+        if line.startswith("stage "):
+            stage_starts.append(time.perf_counter())
+        print(line, file=sys.stderr, flush=True)
+
+    t0 = time.perf_counter()
+    try:
+        student, grid, history = progressive_distill(
+            teacher, data_iter, dcfg,
+            generator=torch.Generator(device=teacher.device).manual_seed(
+                args.seed),
+            log_fn=log, start_grid=start_grid)
+    finally:
+        if close is not None:
+            close()
+    t1 = time.perf_counter()
+    seconds["adapt"] = (stage_starts[0] if stage_starts else t1) - t0
+    seconds["stages"] = t1 - (stage_starts[0] if stage_starts else t1)
+    out = Path(args.out).absolute()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    save_checkpoint(student, out)
+    _sidecar_path(out).write_text(json.dumps(
+        {"parameterization": student.config.parameterization,
+         "timesteps": [int(t) for t in grid], "history": history},
+        indent=2))
+    seconds["write"] = time.perf_counter() - t1
+    print(json.dumps({"out": str(out), "steps": len(grid),
+                      "stages": [h["steps"] for h in history],
+                      "final_loss": history[-1]["loss"] if history
+                      else None}))
+    print(f"cli distill: wall {json.dumps(seconds)} s", file=sys.stderr)
+    return {"student": student, "grid": grid, "history": history,
+            "seconds": seconds}
+
+
+def _read_sidecar(ckpt):
+    """(parameterization, timesteps) of a distilled student's sidecar
+    beside `ckpt`, or None where it has none; exits naming the file where
+    the sidecar lacks either key."""
+    path = _sidecar_path(ckpt)
+    if not path.exists():
+        return None
+    try:
+        meta = json.loads(path.read_text())
+        param = meta["parameterization"]
+        grid = np.asarray(meta["timesteps"], dtype=np.int64)
+    except (ValueError, KeyError, TypeError) as err:
+        raise SystemExit(f"{path}: not a distilled-student sidecar "
+                         f"({type(err).__name__}: {err}); it needs "
+                         f"'parameterization' and 'timesteps'")
+    if param not in ("eps", "v", "x0"):
+        raise SystemExit(f"{path}: unknown parameterization {param!r}")
+    return param, grid
+
+
+def _checked_grid(model, ckpt, grid) -> np.ndarray:
+    """A sidecar's grid, if the DDIM schedule takes it on the model's
+    noise schedule; else exit naming the sidecar."""
+    from upgpt_torch.diffusion.schedule import make_ddim_schedule
+
+    try:
+        make_ddim_schedule(model.schedule, len(grid), eta=0.0,
+                           timesteps=grid)
+    except ValueError as err:
+        raise SystemExit(f"{_sidecar_path(ckpt)}: {err}")
+    return grid
+
+
 def _load_model(model_cfg, ckpt, device=None):
-    """Build a config's model (on `device` where its params name none),
-    load `ckpt` (either layout) into it and cast it to bf16 on the card."""
+    """(model, grid): build a config's model (on `device` where its params
+    name none), load `ckpt` (either layout) into it and cast it to bf16 on
+    the card. Where `ckpt` has a distilled student's sidecar, the model is
+    built at the sidecar's parameterisation and `grid` is the student's
+    t-grid (None otherwise)."""
     from upgpt_torch.checkpoint import load_checkpoint
 
+    sidecar = _read_sidecar(ckpt)
     model_cfg = dict(model_cfg)
+    params = dict(model_cfg.get("params") or {})
     if device is not None:
-        params = dict(model_cfg.get("params") or {})
         params.setdefault("device", device)
-        model_cfg["params"] = params
+    if sidecar is not None:
+        params["parameterization"] = sidecar[0]
+    model_cfg["params"] = params
     model = load_checkpoint(instantiate_from_config(model_cfg), ckpt)
     if model.device.type == "cuda":
         cast_floating(model, torch.bfloat16)
-    return model
+    if sidecar is None:
+        return model, None
+    grid = _checked_grid(model, ckpt, sidecar[1])
+    print(f"distilled student: {sidecar[0]}-param, {len(grid)}-step grid "
+          f"{grid.tolist()}", file=sys.stderr)
+    return model, grid
+
+
+def _pipeline(model, grid, output_uint8: bool = False, **sampling):
+    """A distilled student's pipeline where `grid` is set: eta-0 DDIM on
+    its own grid, the one sampler it is valid for, whatever `sampling`
+    says; else the pipeline of `sampling`."""
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+
+    if grid is not None:
+        return GenerationPipeline(model, num_steps=len(grid), eta=0.0,
+                                  timesteps=grid, output_uint8=output_uint8)
+    return GenerationPipeline(model, output_uint8=output_uint8, **sampling)
 
 
 def _build_serving(cfg, args):
     """(engine, builder, label) for `serve`, factored out so tests can drive
     the construction without the blocking HTTP loop."""
     from upgpt_torch.inference.http_serve import RequestBuilder
-    from upgpt_torch.inference.pipeline import (
-        ChainedUpscalePipeline, GenerationPipeline,
-    )
+    from upgpt_torch.inference.pipeline import ChainedUpscalePipeline
     from upgpt_torch.inference.serving import ServingEngine
 
     _refuse_unported(args)
-    model = _load_model(cfg["model"], args.ckpt)
+    model, grid = _load_model(cfg["model"], args.ckpt)
     enc = _build_cond_encoder(
         cfg, model, allow_debug=getattr(args, "debug_encoder", False))
     samp = cfg.get("sampling") or {}
@@ -545,24 +721,24 @@ def _build_serving(cfg, args):
         # chained 256->512: one submit -> 512px result through both stages;
         # the upscale stage builds on the first stage's device
         up_cfg = merge_configs(args.upscale_base, [])
-        up_model = _load_model(up_cfg["model"], args.upscale_ckpt,
-                               device=str(model.device))
+        up_model, _ = _load_model(up_cfg["model"], args.upscale_ckpt,
+                                  device=str(model.device))
         pipe = ChainedUpscalePipeline(
             model, up_model, num_steps=steps, eta=samp.get("eta", 1.0),
             sampler=sampler, output_uint8=True,
             schedule_method=sched_method)
         label = f"chained {sampler}-{steps}"
     else:
-        pipe = GenerationPipeline(
-            model,
+        pipe = _pipeline(
+            model, grid, output_uint8=True,
             num_steps=steps,
             eta=samp.get("eta", 1.0),
             guidance_scale=samp.get("guidance_scale", 1.0),
             sampler=sampler,
-            output_uint8=True,
             schedule_method=sched_method,
         )
-        label = f"{sampler}-{steps}"
+        label = (f"{sampler}-{steps}" if grid is None
+                 else f"distilled-{len(grid)} {grid.tolist()}")
     engine = ServingEngine(
         pipe, batch_size=args.batch, max_delay_s=args.max_delay,
         base_seed=args.seed, max_in_flight=getattr(args, "in_flight", 2))
@@ -598,7 +774,7 @@ def _common(sub, name: str) -> argparse.ArgumentParser:
     sp.add_argument("--config", "--base", dest="config", nargs="*",
                     default=[], help="YAML configs, merged left to right")
     sp.add_argument("overrides", nargs="*", help="key=value dotlist")
-    if name in ("train", "sample", "test", "serve"):
+    if name in ("train", "sample", "test", "serve", "distill"):
         sp.add_argument("--debug-encoder", action="store_true",
                         help="allow hash-embedding conditioning (no CLIP "
                              "weights; NOT output parity)")
@@ -700,6 +876,35 @@ def parser() -> argparse.ArgumentParser:
                          "pipeline (one submit per 512px result)")
     sp.add_argument("--upscale-ckpt", default=None)
 
+    sp = _common(sub, "distill")
+    sp.add_argument("--teacher-ckpt", required=True,
+                    help="the trained teacher (either checkpoint layout; "
+                         "EMA first), or a student with its sidecar to "
+                         "continue its ladder")
+    sp.add_argument("--out", required=True,
+                    help="the student's checkpoint file (its grid sidecar "
+                         "<out>.distill.json is written beside it)")
+    sp.add_argument("--start-steps", type=int, default=64,
+                    help="the top teacher sampling grid (a power-of-2 "
+                         "multiple of --end-steps)")
+    sp.add_argument("--end-steps", type=int, default=4)
+    sp.add_argument("--stage-steps", type=int, default=2000,
+                    help="optimizer steps per halving stage")
+    sp.add_argument("--lr", type=float, default=2e-4)
+    sp.add_argument("--batch", type=int, default=32)
+    sp.add_argument("--grid", default="karras",
+                    choices=("uniform", "karras"),
+                    help="the ladder's t-grid (nested halving keeps its "
+                         "shape)")
+    sp.add_argument("--ema-decay", type=float, default=0.999)
+    sp.add_argument("--adapt-steps", type=int, default=400,
+                    help="eps->v re-parameterisation updates before the "
+                         "first halving stage")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--synthetic", action="store_true",
+                    help="distil on the procedural synthetic dataset (no "
+                         "data root needed)")
+
     sp = _common(sub, "convert")
     sp.add_argument("--torch-ckpt", required=True,
                     help="a released Lightning .ckpt (the reference's "
@@ -743,8 +948,8 @@ def main(argv=None):
     return {"train": cmd_train, "sample": cmd_sample, "test": cmd_test,
             "eval": cmd_eval, "train-vae": cmd_train_vae,
             "convert": cmd_convert, "serve": cmd_serve,
-            "bringup": cmd_bringup,
-            "data-verify": cmd_data_verify}[args.cmd](cfg, args)
+            "bringup": cmd_bringup, "data-verify": cmd_data_verify,
+            "distill": cmd_distill}[args.cmd](cfg, args)
 
 
 if __name__ == "__main__":

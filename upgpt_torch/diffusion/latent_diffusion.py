@@ -84,6 +84,17 @@ class LatentDiffusionConfig:
         return dataclasses.replace(base, **overrides)
 
 
+def make_schedule(config: LatentDiffusionConfig) -> DiffusionSchedule:
+    """The noise schedule of a model config."""
+    return DiffusionSchedule.create(
+        timesteps=config.timesteps,
+        beta_schedule=config.beta_schedule,
+        linear_start=config.linear_start,
+        linear_end=config.linear_end,
+        parameterization=config.parameterization,
+    )
+
+
 class LatentDiffusion(nn.Module):
     def __init__(self, config: LatentDiffusionConfig):
         super().__init__()
@@ -96,13 +107,7 @@ class LatentDiffusion(nn.Module):
         # 8 heads of 96), in the trainable set (reference ddpm.py:1501-1509)
         self.cond_fusion = (TextStyleCrossAttention(dim=config.context_dim)
                             if config.cond_fusion else None)
-        self.schedule = DiffusionSchedule.create(
-            timesteps=config.timesteps,
-            beta_schedule=config.beta_schedule,
-            linear_start=config.linear_start,
-            linear_end=config.linear_end,
-            parameterization=config.parameterization,
-        )
+        self.schedule = make_schedule(config)
 
     @property
     def device(self) -> torch.device:
