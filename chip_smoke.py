@@ -13,7 +13,8 @@ CUDA toolkit. It
    batch 12, inshop_laion's 78-token context at batch 12, the chain at
    batch 4, mm_512's served batch of 8, the runbook's validators at batch
    1 over a 77-token context projected in-kernel, its sampler check and
-   the app at batch 2, the app's upscale stage at batch 2; the
+   the app at batch 2, the app's upscale stage at batch 2, a
+   data-parallel training rank's 6 rows and a dp serving replica's 4; the
    half-step kernel and the two
    GroupNorm kernels after step 5, at every shape the train step and the
    chain run launched them at, with the launches their counters recorded
@@ -29,7 +30,7 @@ CUDA toolkit. It
    re-drawn from a seeded generator (std 1/sqrt(fan_in), nothing left at
    zero), checks the kernel path against the plain path end to end (one
    U-Net eval, and a 4-step eta-0 sample plus decode at batch 2), then runs
-   DDIM-50 with eta 1 at batch 8 to uint8 images: one warm-up and three
+   DDIM-50 with eta 1 at batch 8 to uint8 images: one warm-up and two
    timed runs, counting kernel launches in each;
 4. training: builds interp_256 with float32 master parameters under bf16
    compute and the training kernels on (flash attention, fused transformer,
@@ -56,8 +57,8 @@ CUDA toolkit. It
    a seed) and runs `python -m upgpt_torch.cli train` in-process on
    `configs/deepfashion/interp_256.yaml` with the debug encoder, the
    compact transport and the training kernels on (model.params dotlist):
-   two epochs at batch 12 (float32 masters, image grids and weights-only
-   snapshots every 4 steps), then `train --resume` for a third epoch under
+   one epoch at batch 12 (float32 masters, image grids and weights-only
+   snapshots every 4 steps), then `train --resume` for a second epoch under
    torch.profiler, each step's launches (the trainer module's
    `train_step`, wrapped here) held to the bare step's; checks the step
    and epoch counts, every loss finite, last/best/trainstep_* and the
@@ -67,9 +68,9 @@ CUDA toolkit. It
    the card's busy share over the loop, whether the native JPEG core is
    live, and the training loader's img/s alone (thread and process);
    evaluation: `python -m upgpt_torch.cli test` from that `last` (its
-   switches, bf16) over 24 distinct validation pairs, DDIM-50 at batch
+   switches, bf16) over 12 distinct validation pairs, DDIM-50 at batch
    12, the FID network from a pt_inception-layout file of seeded weights:
-   24 JPEGs in each of the seven groups, metrics.json finite, the run's
+   12 JPEGs in each of the seven groups, metrics.json finite, the run's
    launches against the model's structure (per batch a sampling run, the
    recon's encode and decode), its wall split into sampling, recon, dump
    and metrics; `cli eval --dir` reproducing the numbers; the harness with
@@ -82,6 +83,16 @@ CUDA toolkit. It
    no kernel launched; ms/step, the generator's and discriminator's
    halves, peak memory; one step at full width in float32 on the card
    against the CPU;
+   data parallelism (`ddp_run`, on the fit's training split): `python -m
+   upgpt_torch.cli train --multihost` in subprocesses with torchrun's
+   environment, at batch 12 with the training kernels on and no
+   validation, three steps each: (a) one rank over NCCL at batch 12, its
+   ms/step beside the fit loop's, its exchanges and bytes a step, the
+   exchange timed alone, peak memory; (b) two ranks sharing the card over
+   gloo (6 rows each) against (a), one process (loss per step, final
+   parameters' relative L2), each rank's launches against
+   `expected_train_counts` at 6 rows, rank 1's logdir never created, each
+   rank's ms/step, exchange and peak memory;
    CLIP: writes synthetic full-width state dicts (openai's ViT-L/14 CLIP,
    text 12 x 768 with QuickGELU and vision 24 x 1024; laion's text tower,
    exact GELU, in HF's layout) and a merges table, builds the towers
@@ -103,14 +114,14 @@ CUDA toolkit. It
    kernel path against the plain path (all switches off) on one upscale
    U-Net eval and on the 512x384 image of a 4-step eta-0 chain at batch 2,
    then runs DDIM-50 eta 1 through both stages at batch 4 to uint8
-   (4, 512, 384, 3): one warm-up and two timed runs, counting kernel
+   (4, 512, 384, 3): one warm-up and one timed run, counting kernel
    launches against the counts the two models' structure gives, and the
    half-step kernel's launches by (shape, O);
 6. UniPC: on the sampling phase's weights, checks the kernel path against
    the plain path for UniPC-8 and DPM++(2M)-8 on the karras grid at batch
    2 (latents, and UniPC's decoded image), then runs UniPC-8-karras, eta
    0, at batch 64 to uint8 (64, 256, 192, 3), `bench.py`'s second row: one
-   warm-up and three timed runs, counting launches (K1 ten a U-Net eval,
+   warm-up and two timed runs, counting launches (K1 ten a U-Net eval,
    one flash forward for the decode, nothing else);
 7. micro_block: the self-attention leg's two kernels (full-width K8,
    per-head K9) against their twins at (32, 768, 224, 8 heads) and at a
@@ -127,13 +138,18 @@ CUDA toolkit. It
    latents and their uint8 image), writes its checkpoint and builds the
    serving engine through `upgpt_torch.cli` (UniPC-8-karras, eta 0, batch
    8, the debug encoder), times the raw pipeline at batch 8 to uint8 on
-   the host (one warm-up, three timed runs, launches counted per batch),
+   the host (one warm-up, two timed runs, launches counted per batch),
    runs one batch's dispatch under `torch.cuda.set_sync_debug_mode
    ("error")`, then serves 12 concurrent /v1/generate requests, a 4-frame
    /v1/interpolate, /v1/stats and /healthz over HTTP on 127.0.0.1: every
    reply a 512x384 PNG, the launches those batches' structure gives, and
    one request's image against the pipeline's on the same packed batch and
    generators (at most one uint8 level; the share that differs printed);
+   before the server, the dp engine (`dp_serve`): `cli serve --dp 2`
+   exiting on one card, then two replicas of the served pipeline on the
+   card through `ServingEngine(devices=...)`, the batch of 8 split 4 + 4,
+   held to the one-replica engine's images and timed beside it, the
+   replicas' launches against their structure;
 9. bringup: re-draws interp_256 at full width in float32 on the card and
    writes a drop: `interp_256.ckpt` in the reference's Lightning layout
    (the U-Net under `model.diffusion_model.*`, a `model_ema.*` shadow of
@@ -216,7 +232,7 @@ TRAIN_UPDATE_REL_L2 = 0.5
 # bound has a margin of 3x or more.
 CHAIN_EPS_REL_L2 = 5e-2
 CHAIN_IMAGE_REL_L2 = 5e-2
-BATCH, STEPS, TIMED_RUNS = 8, 50, 3
+BATCH, STEPS, TIMED_RUNS = 8, 50, 2
 # bench.py's second row: UniPC-8 on the karras grid, eta 0, batch 64
 UNIPC_BATCH, UNIPC_STEPS = 64, 8
 # the self-attention leg at micro_block's geometry, and a ragged T
@@ -239,11 +255,15 @@ SELFATTN_LAUNCHES = (("qkv", "leg_product_kernel<"),
 # differ only in where to_out adds the bias, a bf16 step at most
 SELFATTN_K9_K8_TOL = 1e-2
 TRAIN_BATCH, TRAIN_STEPS, LEARNING_RATE = 12, 5, 2e-6
+# data parallelism: the global training batch over two ranks (6 rows a
+# rank), and a served batch of 8 over two replicas (4 rows a replica)
+DDP_RANKS, DP_REPLICAS = 2, 2
+DDP_RANK_BATCH = TRAIN_BATCH // DDP_RANKS
 # serving mm_512: UniPC-8-karras, eta 0, batch 8; 12 concurrent requests
 # (a full batch and a padded one), then a 4-frame interpolation
 SERVE_VARIANT = "mm_512"
 SERVE_BATCH, SERVE_STEPS, SERVE_REQUESTS, SERVE_FRAMES = 8, 8, 12, 4
-CHAIN_BATCH, CHAIN_TIMED_RUNS = 4, 2
+CHAIN_BATCH, CHAIN_TIMED_RUNS = 4, 1
 # K5's and K6's launches by ((N, H, W, C), kernel) per train step and per
 # chain run, as the models' structure and the gates give them: the U-Net's
 # level-1 GroupNorm+SiLU inputs and out head at batch 12; the out head,
@@ -447,7 +467,9 @@ def kernel_checks(dev) -> dict:
         # and mm_512's ds2 (T 768, C 448) at the serving batch; the
         # runbook's validators (batch 1, the context projected in-kernel
         # over 77 tokens), its sampler check and the app (batch 2, Tk 87),
-        # and the app's upscale ds4 (batch 2, Tk 86)
+        # the app's upscale ds4 (batch 2, Tk 86), a data-parallel training
+        # rank's ds1 and ds2 (batch 6, the context projected in-kernel) and
+        # a dp serving replica's mm_512 ds2 (batch 4, Tk 87)
         for b, t, c, variant in [(BATCH, 768, 224, "kv"),
                                  (BATCH, 192, 448, "kv"),
                                  (TRAIN_BATCH, 768, 224, "fit"),
@@ -464,14 +486,18 @@ def kernel_checks(dev) -> dict:
                                  (1, 192, 448, "validate"),
                                  (2, 768, 224, "bringup_kv"),
                                  (2, 192, 448, "bringup_kv"),
-                                 (APP_FRAMES, 768, 512, "app_up")]:
+                                 (APP_FRAMES, 768, 512, "app_up"),
+                                 (DDP_RANK_BATCH, 768, 224, "ddp"),
+                                 (DDP_RANK_BATCH, 192, 448, "ddp"),
+                                 (SERVE_BATCH // DP_REPLICAS, 768, 448,
+                                  "dp")]:
             p = _random_block(c, 768, g)
             x = randn(b, t, c).bfloat16()
             tk = {"chain": UP_CONTEXT_TOKENS, "laion_kv": LAION_CONTEXT_TOKENS,
                   "laion_ctx": LAION_CONTEXT_TOKENS, "validate": 77,
                   "app_up": UP_CONTEXT_TOKENS}.get(variant, CONTEXT_TOKENS)
             if variant in ("kv", "fit", "chain", "serve", "laion_kv",
-                           "bringup_kv", "app_up"):
+                           "bringup_kv", "app_up", "dp"):
                 kv = (randn(b, tk, c).bfloat16(), randn(b, tk, c).bfloat16())
                 kw, work = {"kv": kv}, _block_work(b, t, c, tk)
             else:
@@ -482,8 +508,8 @@ def kernel_checks(dev) -> dict:
                 {"kv": "sampling", "ctx": "training", "fit": "fit",
                  "serve": "serve", "laion_kv": "laion_sample",
                  "laion_ctx": "laion_train", "validate": "bringup",
-                 "bringup_kv": "bringup", "app_up": "app"}.get(variant,
-                                                               "chain"),
+                 "bringup_kv": "bringup", "app_up": "app", "ddp": "ddp",
+                 "dp": "dp_serve"}.get(variant, "chain"),
                 lambda: ft.fused_transformer_block(x, p, 8, **kw),
                 lambda: ft.transformer_block_reference(x, p, 8, **kw), work)
             row["gemm_library_ms"], row["gemm_library_device_ms"] = \
@@ -501,7 +527,10 @@ def kernel_checks(dev) -> dict:
         # self-attention at the chain batch, mm_512's decoder mid
         # AttnBlock and ds1 self-attention (T 3072) at the serving batch,
         # the runbook's kl-f8 AttnBlocks at batch 1 (validators) and 2
-        # (sampler check, app), and the app's upscale ds2 at batch 2
+        # (sampler check, app), the app's upscale ds2 at batch 2, a
+        # data-parallel training rank's encoder AttnBlock and ds1
+        # recompute at batch 6, and a dp serving replica's 512px decode
+        # and mm_512 ds1 at batch 4
         for shape, path in [((BATCH, 1, 768, 512), "sampling"),
                             ((TRAIN_BATCH, 1, 768, 512), "training"),
                             ((TRAIN_BATCH, 8, 768, 28), "training"),
@@ -510,7 +539,13 @@ def kernel_checks(dev) -> dict:
                             ((SERVE_BATCH, 8, 3072, 28), "serve"),
                             ((1, 1, 768, 512), "bringup"),
                             ((APP_FRAMES, 1, 768, 512), "bringup"),
-                            ((APP_FRAMES, 8, 3072, 64), "app")]:
+                            ((APP_FRAMES, 8, 3072, 64), "app"),
+                            ((DDP_RANK_BATCH, 1, 768, 512), "ddp"),
+                            ((DDP_RANK_BATCH, 8, 768, 28), "ddp"),
+                            ((SERVE_BATCH // DP_REPLICAS, 1, 3072, 512),
+                             "dp_serve"),
+                            ((SERVE_BATCH // DP_REPLICAS, 8, 3072, 28),
+                             "dp_serve")]:
             q, k, v = (randn(shape).bfloat16() for _ in range(3))
             bh, t, d = shape[0] * shape[1], shape[2], shape[3]
             cases["flash_attention"].append(_compare(
@@ -533,6 +568,7 @@ def backward_checks(cases, randn) -> None:
     from upgpt_torch.ops import flash_attention as fa
 
     for shape, path in [((TRAIN_BATCH, 8, 768, 28), "training"),
+                        ((DDP_RANK_BATCH, 8, 768, 28), "ddp"),
                         ((CHAIN_BATCH, 8, 3072, 64), "none")]:
         bh, t, d = shape[0] * shape[1], shape[2], shape[3]
         q, k, v, do = (randn(shape).bfloat16() for _ in range(4))
@@ -936,9 +972,9 @@ def _gn_by_shape(counts: dict) -> dict:
 
 
 def _read_counts() -> dict:
-    counts = {k: fn.launches for k, fn in _counters().items()}
-    counts.update((k, getattr(fn, attr)) for k, fn, attr in _routes())
-    return counts
+    from upgpt_torch.utils.diagnostics import kernel_launches
+
+    return kernel_launches()
 
 
 def slice_run(dev, card: str) -> dict:
@@ -1797,7 +1833,7 @@ def distill_run(dev, card: str) -> dict:
 # sizes. The train split's pairs from WOMEN and MEN sources: with the
 # config's men_factor 4 the 28 + 4 rows are 48, four batches of 12; the
 # validation split 24 pairs, two batches
-FIT_TRAIN_PAIRS, FIT_VAL_PAIRS, FIT_EPOCHS = (28, 4), (24, 0), 2
+FIT_TRAIN_PAIRS, FIT_VAL_PAIRS, FIT_EPOCHS = (28, 4), (24, 0), 1
 FIT_IMAGE_LOG_EVERY = FIT_CKPT_EVERY = 4
 FIT_SAMPLE_STEPS = 50
 # the kernel switches `train_run` sets, as the config's model.params dotlist
@@ -1921,12 +1957,34 @@ def _time_loader(cls, ds, transform, **kw) -> dict:
             "workers": loader.num_workers}
 
 
+def fit_dotlist(tree: dict, logdir: str) -> list:
+    """The fit phase's `cli train` dotlist over a tree from
+    `write_fashion_tree`: its three splits, batch 12, a log every step,
+    image logs and weights-only snapshots every 4 steps, the compact
+    transport and the training kernels on."""
+    dotlist = [f"data.{s}.params.{k}={tree[v]}"
+               for s in ("train", "validation", "test")
+               for k, v in (("folder", "folder"),
+                            ("data_file", "data_file"))]
+    dotlist += [f"data.train.params.pair_file=['{tree['train']}']",
+                f"data.validation.params.pair_file=['{tree['validation']}']",
+                f"data.test.params.pair_file=['{tree['validation']}']",
+                f"trainer.batch_size={TRAIN_BATCH}", "trainer.log_every=1",
+                "trainer.warm_up_steps=1",
+                f"trainer.log_images_every={FIT_IMAGE_LOG_EVERY}",
+                f"trainer.ckpt_every_steps={FIT_CKPT_EVERY}",
+                f"trainer.logdir={logdir}",
+                "trainer.compact_transport=True"]
+    return dotlist + [f"model.params.{k}=True" for k in FIT_KERNELS]
+
+
 def fit_run(dev, card: str, bare_ms: list, work: str):
     """`python -m upgpt_torch.cli train` on interp_256 in-process: a
-    DeepFashion-shaped tree at the config's sizes under `work`, two epochs
-    at batch 12 through `cli.main` (float32 masters, compact transport, the
-    debug encoder, the training kernels on), each step's launches held to
-    `expected_train_counts`; `train --resume` for a third epoch under the
+    DeepFashion-shaped tree at the config's sizes under `work`,
+    FIT_EPOCHS epochs at batch 12 through `cli.main` (float32 masters,
+    compact transport, the debug encoder, the training kernels on), each
+    step's launches held to `expected_train_counts`; `train --resume` for
+    one more epoch under the
     profiler; `sample` from the last checkpoint at batch 12, DDIM-50; then
     the training loader alone. Returns the paths `fit_run` (the two
     training runs) and `sample_run`, and what the eval phase takes: the
@@ -1961,21 +2019,7 @@ def fit_run(dev, card: str, bare_ms: list, work: str):
         print(f"fit phase: tree written in {time.perf_counter() - t0:.3f} s",
               flush=True)
         logdir = os.path.join(work, "run")
-        dotlist = [f"data.{s}.params.{k}={tree[v]}"
-                   for s in ("train", "validation", "test")
-                   for k, v in (("folder", "folder"),
-                                ("data_file", "data_file"))]
-        dotlist += [f"data.train.params.pair_file=['{tree['train']}']",
-                    f"data.validation.params.pair_file=["
-                    f"'{tree['validation']}']",
-                    f"data.test.params.pair_file=['{tree['validation']}']",
-                    f"trainer.batch_size={TRAIN_BATCH}", "trainer.log_every=1",
-                    "trainer.warm_up_steps=1",
-                    f"trainer.log_images_every={FIT_IMAGE_LOG_EVERY}",
-                    f"trainer.ckpt_every_steps={FIT_CKPT_EVERY}",
-                    f"trainer.logdir={logdir}",
-                    "trainer.compact_transport=True"]
-        dotlist += [f"model.params.{k}=True" for k in FIT_KERNELS]
+        dotlist = fit_dotlist(tree, logdir)
         train = ["train", "--base", config, "--debug-encoder"] + dotlist
         cfg = merge_configs([config], dotlist)
         with torch.device("meta"):
@@ -1988,7 +2032,7 @@ def fit_run(dev, card: str, bare_ms: list, work: str):
         val_batches = len(instantiate_from_config(
             cfg["data"]["validation"])) // TRAIN_BATCH
 
-        # --- two epochs ---
+        # --- FIT_EPOCHS epochs ---
         torch.cuda.synchronize()
         _reset_counts()
         t0 = time.perf_counter()
@@ -2166,11 +2210,11 @@ def fit_run(dev, card: str, bare_ms: list, work: str):
         "ckpt": os.path.join(logdir, "checkpoints", "last")}
 
 
-# the eval phase: `cli test` from the fit phase's `last` over 24 distinct
-# validation pairs of its tree (two batches of 12), DDIM-50, bf16, the FID
+# the eval phase: `cli test` from the fit phase's `last` over 12 distinct
+# validation pairs of its tree (one batch of 12), DDIM-50, bf16, the FID
 # network from a pt_inception-layout file of seeded weights; then `cli eval`
 # on the dump, and the harness on the card against the CPU
-EVAL_IMAGES, EVAL_STEPS = 24, 50
+EVAL_IMAGES, EVAL_STEPS = 12, 50
 EVAL_GROUPS = ("samples", "gt", "recon", "src", "smpl", "concats", "styles")
 # `cli eval` on the same files and the same card: the metrics again, to a
 # relative 1e-6 (the same arithmetic; a looser bound would hide a harness
@@ -2622,10 +2666,226 @@ def train_vae_run(dev, card: str, work: str, tree: dict) -> dict:
             "phase_wall_s": time.perf_counter() - t_phase}
 
 
+# the ddp phase: `python -m upgpt_torch.cli train --multihost` as a user
+# launches it (torchrun's environment), on the fit phase's training split
+# (48 pairs, four global batches of 12) at interp_256's full width with the
+# training kernels on, no validation and no image logs, DDP_STEPS steps
+# each: (a) one rank over NCCL at batch 12, one process (DDP's mean over
+# one rank is the rank's own gradient); (b) two ranks sharing the card
+# (gloo: NCCL takes one rank per card), 6 rows a rank, against (a): the
+# same seed, data and draws
+DDP_STEPS = 3
+# each rank's subprocess: the start, the model build, the steps, the save
+DDP_RANK_TIMEOUT_S = 600
+# Two ranks against one process, per step |loss difference| / loss and the
+# relative L2 of the final parameters. Both compute in bf16; a rank's
+# forward at 6 rows matches the one process's rows at 12 but for the
+# order of a few sums, and the ranks' halves of the gradient are averaged
+# in float32 where one process sums 12 rows. Measured on an H100 (700 W):
+# 6.386e-8 (loss) and 1.971e-8 (parameters), so each bound has a margin
+# of 15x or more.
+DDP_LOSS_REL = 1e-6
+DDP_PARAM_REL_L2 = 1e-6
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _multihost_train(argvs: list, local_world: int, label: str) -> list:
+    """Run `python -m upgpt_torch.cli train --multihost` once per rank
+    (`argvs[r]` its arguments) with torchrun's environment on one host,
+    all at once; returns each rank's `multihost summary` and its
+    `multihost:` start line. A rank that fails, or outlives
+    DDP_RANK_TIMEOUT_S, fails the phase; every rank is stopped."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    procs = []
+    for rank, argv in enumerate(argvs):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(len(argvs)),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(local_world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTHONPATH=repo)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "upgpt_torch.cli", "train", "--multihost"]
+            + argv, cwd=repo, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    results = []
+    try:
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=DDP_RANK_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{label}: rank {rank} exited "
+                                   f"{proc.returncode}:\n{out[-2000:]}\n"
+                                   f"{err[-6000:]}")
+            start = next(line for line in err.splitlines()
+                         if line.startswith("multihost: rank"))
+            summary = json.loads(next(
+                line for line in err.splitlines()
+                if line.startswith("multihost summary "))[
+                    len("multihost summary "):])
+            results.append((summary, start))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def _rank_counts(meta, b: int, steps: int) -> dict:
+    """Launches of `steps` train steps at `b` rows a rank."""
+    per_step = expected_train_counts(meta, b)
+    return {k: steps * n for k, n in per_step.items()}
+
+
+def _trained_params(logdir: str) -> dict:
+    """The raw trainable weights of a trainer checkpoint's `last`, read
+    through a memory map (the optimizer state stays on disk)."""
+    payload = torch.load(os.path.join(logdir, "checkpoints", "last"),
+                         map_location="cpu", mmap=True, weights_only=True)
+    return payload["params"]
+
+
+def ddp_run(dev, card: str, work: str, fit: dict, fit_ms: float) -> dict:
+    """`cli train --multihost` on the card: (a) one rank over NCCL, its
+    ms/step beside the fit loop's `fit_ms`; (b) two ranks sharing the card
+    over gloo, held to (a)'s one process (loss per step, final
+    parameters), each rank's launches to `expected_train_counts` at 6
+    rows, rank 1 writing nothing. Returns the path's launches (every
+    rank's), times and errors."""
+    import numpy as np
+    import yaml
+
+    from upgpt_torch.config import instantiate_from_config, merge_configs
+    from upgpt_torch.training.train_state import trainable_parameters
+
+    t_phase = time.perf_counter()
+    cfg = merge_configs([fit["config"]], fit["dotlist"])
+    # the training split alone: no validation, test or image logs, no
+    # snapshots; the fit's seed
+    for split in ("validation", "test"):
+        cfg["data"].pop(split, None)
+    cfg["trainer"].update(log_images_every=0, ckpt_every_steps=None,
+                          log_every=1)
+    base = os.path.join(work, "ddp.yaml")
+    with open(base, "w") as f:
+        # through JSON: tuples as lists, which safe YAML can write
+        yaml.safe_dump(json.loads(json.dumps(cfg)), f)
+    with torch.device("meta"):
+        meta = instantiate_from_config(
+            {**cfg["model"], "params": {**cfg["model"]["params"],
+                                        "device": "meta"}})
+    # a step's exchange: every trainable float32 gradient, once
+    grad_bytes = 4 * sum(p.numel() for _, p in trainable_parameters(meta))
+
+    def argv(logdir: str, steps: int) -> list:
+        return ["--base", base, "--debug-encoder", f"trainer.logdir={logdir}",
+                f"trainer.max_steps={steps}"]
+
+    # --- (a) one rank over NCCL ---
+    t0 = time.perf_counter()
+    ((one, start),) = _multihost_train(
+        [argv(os.path.join(work, "ddp_nccl"), DDP_STEPS)], 1, "nccl")
+    nccl_wall = time.perf_counter() - t0
+    want = _rank_counts(meta, TRAIN_BATCH, DDP_STEPS)
+    if one["backend"] != "nccl" or "backend nccl" not in start:
+        raise RuntimeError(f"one rank on one card chose {one['backend']}")
+    if one["steps"] != DDP_STEPS or one["launches"] != want:
+        raise RuntimeError(f"nccl rank: {one['steps']} steps, launches "
+                           f"{one['launches']}, expected {want}")
+    if one["exchange_bytes_per_step"] != grad_bytes:
+        raise RuntimeError(f"nccl rank exchanged "
+                           f"{one['exchange_bytes_per_step']} bytes a step, "
+                           f"{grad_bytes} expected")
+    nccl_ms = float(np.median(one["step_ms"]))
+    print(f"ddp (a) cli train --multihost, 1 rank over NCCL: {start}; "
+          f"{DDP_STEPS} steps at batch {TRAIN_BATCH}: "
+          f"{' '.join(f'{x:.2f}' for x in one['step_ms'])} ms between steps, "
+          f"median {nccl_ms:.2f} ms/step against the fit loop's "
+          f"{fit_ms:.2f} (x{nccl_ms / fit_ms:.3f}); {one['exchanges_per_step']}"
+          f" exchanges, {one['exchange_bytes_per_step'] / 2**20:.1f} MiB a "
+          f"step, alone {one['exchange_ms']:.3f} ms; peak "
+          f"{one['peak_memory_gib']:.3f} GiB; {nccl_wall:.3f} s of wall; "
+          f"launches {one['launches']}; on {card}", flush=True)
+
+    # --- (b) two ranks sharing the card over gloo, against (a) ---
+    logdirs = [os.path.join(work, f"ddp_gloo_rank{r}")
+               for r in range(DDP_RANKS)]
+    t0 = time.perf_counter()
+    ranks = _multihost_train([argv(d, DDP_STEPS) for d in logdirs],
+                             DDP_RANKS, "gloo")
+    gloo_wall = time.perf_counter() - t0
+    want = _rank_counts(meta, DDP_RANK_BATCH, DDP_STEPS)
+    for rank, (summary, start) in enumerate(ranks):
+        if summary["backend"] != "gloo" or "backend gloo" not in start:
+            raise RuntimeError(f"rank {rank} of two on one card chose "
+                               f"{summary['backend']}")
+        if (summary["steps"] != DDP_STEPS
+                or summary["launches"] != want
+                or summary["exchange_bytes_per_step"] != grad_bytes):
+            raise RuntimeError(f"gloo rank {rank}: {summary['steps']} "
+                               f"steps, launches {summary['launches']}, "
+                               f"expected {want}; exchanged "
+                               f"{summary['exchange_bytes_per_step']} bytes "
+                               f"a step, {grad_bytes} expected")
+    if any(os.path.exists(d) for d in logdirs[1:]):
+        raise RuntimeError("a rank other than 0 wrote under its logdir")
+    ref_dir = os.path.join(work, "ddp_nccl")
+
+    def losses(logdir):
+        return [r["loss"] for r in map(json.loads, open(os.path.join(
+            logdir, "metrics.jsonl"))) if "loss" in r]
+
+    got, ref = losses(logdirs[0]), losses(ref_dir)
+    if len(got) != DDP_STEPS or len(ref) != DDP_STEPS:
+        raise RuntimeError(f"losses {got} against {ref}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    a, b = _trained_params(logdirs[0]), _trained_params(ref_dir)
+    param_rel = _rel_l2_lists([a[n] for n in b], list(b.values()))
+    del a, b
+    print(f"ddp (b) cli train --multihost, {DDP_RANKS} ranks sharing the "
+          f"card over gloo ({DDP_RANK_BATCH} rows a rank), {DDP_STEPS} "
+          f"steps against (a), one process at batch {TRAIN_BATCH}: losses "
+          f"{' '.join(f'{x:.6f}' for x in got)} against "
+          f"{' '.join(f'{x:.6f}' for x in ref)} (max rel {loss_rel:.3e}), "
+          f"final parameters rel L2 {param_rel:.3e}; {gloo_wall:.3f} s of "
+          f"wall; on {card}", flush=True)
+    for rank, (summary, start) in enumerate(ranks):
+        print(f"  rank {rank}: {start}; "
+              f"{' '.join(f'{x:.2f}' for x in summary['step_ms'])} ms "
+              f"between steps (gloo stages CUDA tensors through the host: "
+              f"no DDP speed figure); {summary['exchanges_per_step']} "
+              f"exchanges, {summary['exchange_bytes_per_step'] / 2**20:.1f} "
+              f"MiB a step, alone {summary['exchange_ms']:.3f} ms; peak "
+              f"{summary['peak_memory_gib']:.3f} GiB", flush=True)
+    if loss_rel > DDP_LOSS_REL or param_rel > DDP_PARAM_REL_L2:
+        raise RuntimeError(f"two ranks disagree with one process: loss "
+                           f"{loss_rel:.3e}, parameters {param_rel:.3e}")
+    launches = {k: one["launches"][k] + sum(s["launches"][k]
+                                            for s, _ in ranks)
+                for k in one["launches"]}
+    return {"launches": launches, "nccl": {
+        "step_ms": one["step_ms"], "median_ms": nccl_ms,
+        "fit_loop_median_ms": fit_ms,
+        "exchanges_per_step": one["exchanges_per_step"],
+        "exchange_bytes_per_step": one["exchange_bytes_per_step"],
+        "exchange_ms": one["exchange_ms"],
+        "peak_memory_gib": one["peak_memory_gib"], "wall_s": nccl_wall},
+        "gloo": {"ranks": [s for s, _ in ranks], "wall_s": gloo_wall,
+                 "losses": got, "one_process_losses": ref,
+                 "loss_rel": loss_rel, "param_rel_l2": param_rel},
+        "phase_s": time.perf_counter() - t_phase}
+
+
 def fit_eval_and_vae_run(dev, card: str, bare_ms: list) -> dict:
-    """The fit phase, then the eval phase from its checkpoint and the
-    train-vae phase on its tree, in a temporary directory under
-    `upgpt_torch/_build` removed after."""
+    """The fit phase, then the eval phase from its checkpoint, the
+    train-vae phase and the ddp phase on its tree, in a temporary
+    directory under `upgpt_torch/_build` removed after."""
     import shutil
     import tempfile
 
@@ -2639,6 +2899,11 @@ def fit_eval_and_vae_run(dev, card: str, bare_ms: list) -> dict:
         out["test_run"] = eval_run(dev, card, work, fit)
         torch.cuda.empty_cache()
         out["train_vae_run"] = train_vae_run(dev, card, work, fit["tree"])
+        torch.cuda.empty_cache()
+        # the fit's checkpoints are done with: room for the ddp phase's
+        shutil.rmtree(os.path.join(work, "run"), ignore_errors=True)
+        out["ddp_run"] = ddp_run(dev, card, work, fit,
+                                 out["fit_run"]["median_ms_per_step"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
@@ -3521,6 +3786,7 @@ def serve_run(dev, card: str) -> dict:
     engine.fetch(out, event)
     print("mm_512 dispatch under torch.cuda.set_sync_debug_mode('error'): "
           "no sync raised", flush=True)
+    dp = dp_serve_run(engine, batch, card)
 
     # --- the server: concurrent requests, interpolation, stats ---
     engine.start()
@@ -3620,7 +3886,85 @@ def serve_run(dev, card: str) -> dict:
             "client_latency_s": client_s, "burst_timeline": burst,
             "raw_s_per_batch": times, "raw_img_per_s": SERVE_BATCH / raw_s,
             "served_max_level_diff": int(diff.max()),
-            "served_share_differing": differ, **e2e}
+            "served_share_differing": differ, **e2e, "dp_serve": dp}
+
+
+# The dp engine's images against the one-replica engine's on the same
+# requests and generators, uint8: a replica's U-Net runs at 4 rows where
+# the one engine's runs at 8, so values round one bf16 step apart here and
+# there, and eight UniPC steps carry that into the image. Measured on an
+# H100 (700 W): at most 5 levels, 45% of values one level or more apart;
+# the bounds: 16 levels, and the images' relative L2 under the sampling
+# phase's kernel-vs-plain gate IMAGE_REL_L2 (a difference of the same
+# kind: bf16 roundings at other places).
+DP_MAX_LEVELS = 16
+
+
+def dp_serve_run(engine, batch, card: str) -> dict:
+    """`ServingEngine(devices=...)`: DP_REPLICAS replicas of the served
+    mm_512 pipeline on this card (`cli serve --dp 2` itself exits on one
+    card, as JAX's does), the packed batch of SERVE_BATCH split into equal
+    parts, held to the one-replica engine's images for the same requests
+    and generators; the dp dispatch's launches against the replicas'
+    structure."""
+    import numpy as np
+
+    from upgpt_torch.cli import _build_serving, parser
+    from upgpt_torch.inference.serving import ServingEngine
+
+    args = parser().parse_args(["serve", "--ckpt", "unused.pt",
+                                "--debug-encoder", "--dp", str(DP_REPLICAS)])
+    try:
+        _build_serving({}, args)
+    except SystemExit as err:
+        refused = str(err)
+    else:
+        raise RuntimeError(f"--dp {DP_REPLICAS} was served on one card")
+    if "exceeds 1 CUDA devices" not in refused:
+        raise RuntimeError(f"--dp {DP_REPLICAS} on one card: {refused}")
+    pipe = engine.pipeline
+    dev = engine.device
+    dp = ServingEngine(pipe, batch_size=SERVE_BATCH,
+                       devices=[dev] * DP_REPLICAS)
+    per = SERVE_BATCH // DP_REPLICAS
+    expected = {k: DP_REPLICAS * v for k, v in expected_sampling_counts(
+        pipe.model, per, CONTEXT_TOKENS, pipe.num_steps).items()}
+    dp.fetch(*dp.dispatch(batch, 3000))  # the copy's first call, untimed
+    times = {}
+    for name, eng in (("one", engine), ("dp", dp), ("dp", dp),
+                      ("one", engine)):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = eng.fetch(*eng.dispatch(batch, 3001))
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+        if name == "dp":
+            got, counts = out, _read_counts()
+        else:
+            want = out
+    if counts != expected:
+        raise RuntimeError(f"dp launches {counts}, expected {expected}")
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    differ = float((diff > 0).mean())
+    rel = float(np.sqrt(np.square(diff, dtype=np.float64).sum()
+                        / np.square(want, dtype=np.float64).sum()))
+    print(f"mm_512 dp engine, {DP_REPLICAS} replicas on {dev} ({per} rows "
+          f"each) against one: max |d| {diff.max()} levels, {differ:.6f} of "
+          f"values differ, rel L2 {rel:.3e}; s/batch dp "
+          f"{' '.join(f'{t:.4f}' for t in times['dp'])}, one "
+          f"{' '.join(f'{t:.4f}' for t in times['one'])}; `--dp "
+          f"{DP_REPLICAS}` on one card: {refused!r}; launches {counts}; on "
+          f"{card}", flush=True)
+    if got.shape != want.shape or diff.max() > DP_MAX_LEVELS or (
+            rel > IMAGE_REL_L2):
+        raise RuntimeError(f"the dp engine's images differ from one "
+                           f"replica's: {diff.max()} levels, rel L2 {rel}")
+    del dp
+    torch.cuda.empty_cache()
+    return {"launches": counts, "replicas": DP_REPLICAS,
+            "s_per_batch": times["dp"], "one_s_per_batch": times["one"],
+            "max_level_diff": int(diff.max()), "share_differing": differ,
+            "rel_l2": rel}
 
 
 # the bringup phase: a drop of re-drawn interp_256 weights in the
@@ -4056,7 +4400,9 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     (`bringup_run`), the app phase's three requests (`app_run`), the
     distill phase's two `cli distill` runs (`distill_run`), its student's
     `cli sample` (`distill_sample`) and served batch (`distill_serve`),
-    and one micro_block run (there the
+    the ddp phase's `cli train --multihost` ranks (`ddp_run`, every
+    rank's own counts), the dp engine's batch (`dp_serve`), and one
+    micro_block run (there the
     wrapper's calls, the ones captured in its CUDA graphs included; the
     graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
@@ -4146,21 +4492,26 @@ def main() -> None:
     torch.cuda.empty_cache()
     k7_by_shape = chain.pop("k7_by_shape")
     cases["fused_resblock"] = resblock_checks(dev, k7_by_shape)
+    # a data-parallel rank's GroupNorm shapes: the train step's at 6 rows
+    ddp_gn = {((DDP_RANK_BATCH,) + shape[1:], kind): n
+              for (shape, kind), n in GN_LAUNCHES["training"].items()}
     gn = groupnorm_checks(dev, {"training": training.pop("gn_by_shape"),
-                                "chain": chain.pop("gn_by_shape")},
+                                "chain": chain.pop("gn_by_shape"),
+                                "ddp": ddp_gn},
                           sorted({key[:4] for key in k7_by_shape}))
     cases["fused_group_norm"] = gn["fused_group_norm"]
     cases["tiled_group_norm"] = gn["tiled_group_norm"]
 
     served = serve_run(dev, card)
+    dp_served = served.pop("dp_serve")
     torch.cuda.empty_cache()
     brought = bringup_and_app_run(dev, card)
     torch.cuda.empty_cache()
     micro = micro_block_run()
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain, "unipc_run": unipc, "micro_block": micro,
-            "serve_run": served, **fitted, **laion, **brought,
-            **distilled}
+            "serve_run": served, "dp_serve": dp_served, **fitted, **laion,
+            **brought, **distilled}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]

@@ -170,8 +170,8 @@ def test_data_verify_reports_like_jax(tree, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--multihost"], "item 10"),
-    (["sample", "--tp", "2", "--ckpt", "x"], "item 10"),
+    (["test", "--tp", "2", "--ckpt", "x"], "item 12"),
+    (["sample", "--tp", "2", "--ckpt", "x"], "item 12"),
     (["sample", "--ckpt", "SIDECAR"], "'parameterization'")])
 def test_unported_options_are_refused(tmp_path, argv, item):
     # a sidecar without its keys exits naming the missing one, before the

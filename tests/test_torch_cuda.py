@@ -57,6 +57,10 @@ def _moved(before, after, route):
 @pytest.mark.parametrize("shape,dtype,tol", [
     ((2, 1, 768, 512), torch.bfloat16, 2e-2),   # VAE mid AttnBlock
     ((2, 1, 3072, 512), torch.bfloat16, 2e-2),  # its kl-f8 512px mid (K2)
+    ((6, 1, 768, 512), torch.bfloat16, 2e-2),   # a rank's VAE encode
+    ((6, 8, 768, 28), torch.bfloat16, 2e-2),    # a rank's ds1 recompute
+    ((4, 1, 3072, 512), torch.bfloat16, 2e-2),  # a dp replica's decode
+    ((4, 8, 3072, 28), torch.bfloat16, 2e-2),   # a dp replica's ds1
     ((1, 8, 3072, 64), torch.bfloat16, 2e-2),   # 512px upscale
     ((1, 8, 3072, 28), torch.bfloat16, 2e-2),   # 512px mm_512 ds1
     ((2, 8, 192, 56), torch.bfloat16, 2e-2),    # K1's ds2 head width
@@ -127,6 +131,7 @@ def _random_tree(c, dev, seed=1):
 @pytest.mark.parametrize("b,t,c,heads", [
     (4, 768, 224, 8), (4, 192, 448, 8), (2, 64, 64, 4), (3, 40, 96, 3),
     (2, 768, 448, 8),  # mm_512's ds2, past JAX's gate (ROADMAP P5)
+    (4, 768, 448, 8),  # a dp replica's mm_512 ds2
 ])
 def test_fused_kernel_matches_twin(dev, b, t, c, heads):
     p = _random_tree(c, dev)
@@ -188,6 +193,7 @@ def test_spatial_transformer_dispatches_to_the_kernel(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,c,heads", [
     (4, 768, 224, 8), (4, 192, 448, 8), (2, 64, 64, 4), (3, 40, 96, 3),
+    (6, 768, 224, 8), (6, 192, 448, 8),  # a data-parallel rank's ds1, ds2
 ])
 def test_fused_kernel_with_context_matches_twin(dev, b, t, c, heads):
     p = _random_tree(c, dev, seed=2)
@@ -205,6 +211,7 @@ def test_fused_kernel_with_context_matches_twin(dev, b, t, c, heads):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,tol", [
     ((12, 8, 768, 28), torch.bfloat16, 2e-2),   # 256px training ds1
+    ((6, 8, 768, 28), torch.bfloat16, 2e-2),    # a data-parallel rank's
     ((4, 8, 3072, 64), torch.bfloat16, 2e-2),   # upscale ds2, in JAX's gate
     ((1, 2, 200, 28), torch.bfloat16, 2e-2),    # ragged T
     ((1, 2, 256, 128), torch.bfloat16, 2e-2),   # the widest tensor-core D
@@ -275,6 +282,8 @@ K5_PATH_SHAPES = [
     (12, 8, 6, 896), (12, 8, 6, 1344), (12, 8, 6, 1792), (12, 4, 3, 896),
     (12, 4, 3, 1792), (4, 32, 24, 224), (4, 32, 24, 512),
 ]
+# a data-parallel rank's batch: a global batch of 12 over two ranks
+DDP_RANK_BATCH = 6
 # K6's shapes on the chain: the kl-f8 and kl-f4 decoders past K5's gate
 K6_PATH_SHAPES = [
     (4, 64, 48, 512), (4, 128, 96, 256), (4, 128, 96, 512),
@@ -300,6 +309,9 @@ def _gn_inputs(shape, dtype, dev, seed, groups=32):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,silu,tol", [
     *((s, torch.bfloat16, True, 2e-2) for s in K5_PATH_SHAPES),
+    # each data-parallel rank's fourteen training shapes at batch 6
+    *(((DDP_RANK_BATCH,) + s[1:], torch.bfloat16, True, 2e-2)
+      for s in K5_PATH_SHAPES[:14]),
     ((12, 16, 12, 448), torch.bfloat16, False, 2e-2),
     ((3, 7, 13, 224), torch.bfloat16, True, 2e-2),   # 91 rows, 8 blocks
     ((2, 4, 3, 2304), torch.bfloat16, True, 2e-2),   # two column passes

@@ -268,7 +268,9 @@ def test_port_never_imports_jax():
         "          'upgpt_torch.convert.lightning', 'upgpt_torch.bringup',\n"
         "          'upgpt_torch.app', 'upgpt_torch.data.prep',\n"
         "          'upgpt_torch.training.distill',\n"
-        "          'upgpt_torch.data.synthetic'):\n"
+        "          'upgpt_torch.data.synthetic',\n"
+        "          'upgpt_torch.parallel.multihost',\n"
+        "          'upgpt_torch.parallel.mesh'):\n"
         "    assert m in mods, m\n"
         "print(len(mods))\n"
     )

@@ -11,6 +11,9 @@ the JAX package's `configs/deepfashion/*.yaml` drive the port unchanged:
     python -m upgpt_torch.cli train \\
         --base configs/deepfashion/interp_256.yaml --debug-encoder \\
         data.train.params.folder=/data/deepfashion_inshop
+    torchrun --nproc-per-node 8 -m upgpt_torch.cli train --multihost \\
+        --base configs/deepfashion/interp_256.yaml --debug-encoder \\
+        data.train.params.folder=/data/deepfashion_inshop
     python -m upgpt_torch.cli sample \\
         --base configs/deepfashion/interp_256.yaml --debug-encoder \\
         --ckpt logs/interp_256/checkpoints/last --steps 50
@@ -54,9 +57,18 @@ is not accepted. `distill` halves a teacher's sampling steps
 writes the v-parameterised student with its grid sidecar
 `<out>.distill.json`; `sample`, `test` and `serve` read a checkpoint's
 sidecar, rebuild the model at its parameterisation and sample eta-0 DDIM
-on its grid, whatever --steps and --sampler say. Orbax weight
-directories, `--multihost`, `--dp` and `--tp` are not ported yet; each
-names the ROADMAP item it waits on.
+on its grid, whatever --steps and --sampler say.
+
+`train --multihost` trains data-parallel over the process group that
+torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+MASTER_PORT) names (`upgpt_torch.parallel`): one rank a card over NCCL,
+the global batch rounded up to a multiple of the ranks, each rank on its
+rows; with no such environment it trains as one process. Each rank
+prints a summary line on stderr at the end (`multihost summary {...}`).
+`serve --dp N` keeps a replica of the pipeline on each of cuda:0..N-1 and
+splits every batch over them; its kernels stay on (JAX turns its Pallas
+kernels off under --dp, ROADMAP §3 P9). Orbax weight directories and
+`--tp` are not ported yet; each names the ROADMAP item it waits on.
 """
 
 from __future__ import annotations
@@ -113,15 +125,9 @@ def _sidecar_path(ckpt) -> Path:
 
 
 def _refuse_unported(args) -> None:
-    if getattr(args, "multihost", False):
-        raise SystemExit("--multihost: multi-host training waits on "
-                         "torch.distributed (ROADMAP §1 item 10)")
-    if (getattr(args, "dp", 1) or 1) > 1:
-        raise SystemExit("--dp > 1: data-parallel serving waits on "
-                         "torch.distributed (ROADMAP §1 item 10)")
     if (getattr(args, "tp", 1) or 1) > 1:
-        raise SystemExit("--tp > 1: tensor-parallel serving waits on "
-                         "torch.distributed (ROADMAP §1 item 10)")
+        raise SystemExit("--tp > 1: tensor parallelism is not ported yet "
+                         "(ROADMAP §1 item 12)")
     up_ckpt = getattr(args, "upscale_ckpt", None)
     if up_ckpt and _sidecar_path(up_ckpt).exists():
         raise SystemExit(
@@ -141,11 +147,16 @@ def _refuse_unported(args) -> None:
 def _loaders(cfg, batch_size, compact=False, train_transform=None):
     """The config's data splits as loaders: `train` shuffled through the
     prefetching thread loader (`data.loader: process` selects worker
-    processes), the others in order. One process: multi-process slicing
-    waits on DDP (ROADMAP §1 item 10)."""
+    processes), the others in order. `batch_size` is the global batch: in
+    a process group each rank loads its slice of every global batch
+    (DistributedSampler's split, the same permutation on every rank)."""
     from upgpt_torch.data.deepfashion import (
         DataLoader, PrefetchDataLoader, ProcessDataLoader,
     )
+    from upgpt_torch.parallel import multihost
+
+    proc = dict(process_index=multihost.process_index(),
+                process_count=multihost.process_count())
 
     data_cfg = cfg.get("data") or {}
     out = {}
@@ -165,9 +176,9 @@ def _loaders(cfg, batch_size, compact=False, train_transform=None):
                    else PrefetchDataLoader)
             out[split] = cls(ds, batch_size, shuffle=True,
                              num_workers=int(data_cfg.get("num_workers", 0)),
-                             batch_transform=train_transform)
+                             batch_transform=train_transform, **proc)
         else:
-            out[split] = DataLoader(ds, batch_size, shuffle=False)
+            out[split] = DataLoader(ds, batch_size, shuffle=False, **proc)
     return out
 
 
@@ -182,16 +193,32 @@ def _restore_params(ckpt):
 
 
 def cmd_train(cfg, args):
-    """Train the config's model on its data (JAX `cmd_train`)."""
-    from upgpt_torch.training.trainer import Trainer, TrainerConfig
+    """Train the config's model on its data (JAX `cmd_train`); with
+    `--multihost`, data-parallel over the run's process group."""
+    from upgpt_torch.parallel import multihost
 
     _refuse_unported(args)
-    tcfg = dict(cfg.get("trainer") or {})
     model_cfg = dict(cfg["model"])
     # float32 masters under the config's compute dtype, as flax trains
     # (param_dtype); the serving cast to bf16 is not for training
     model_cfg["params"] = {"param_dtype": "float32",
                            **(model_cfg.get("params") or {})}
+    group = None
+    if getattr(args, "multihost", False):
+        # before the first CUDA touch: the rank's card becomes the current
+        # device, where the zoo's default "cuda" builds the model
+        device = str(model_cfg["params"].get("device", "cuda"))
+        group = multihost.initialize(device=torch.device(device).type)
+    try:
+        return _train(cfg, args, model_cfg, group)
+    finally:
+        multihost.shutdown()
+
+
+def _train(cfg, args, model_cfg, group):
+    from upgpt_torch.training.trainer import Trainer, TrainerConfig
+
+    tcfg = dict(cfg.get("trainer") or {})
     # the weights from the run's seed, as JAX inits from PRNGKey(seed)
     torch.manual_seed(TrainerConfig(**tcfg).seed)
     model = instantiate_from_config(model_cfg)
@@ -199,13 +226,25 @@ def cmd_train(cfg, args):
     # accelerators; the config can override
     tcfg.setdefault("compact_transport", model.device.type == "cuda")
     tc = TrainerConfig(**tcfg)
+    ranks = 1 if group is None else group.world_size
+    if tc.batch_size % ranks:
+        # the global batch splits over the ranks: round it up rather than
+        # idle a card (JAX's rule over its devices)
+        import dataclasses
+        import math
+
+        new_bs = math.ceil(tc.batch_size / ranks) * ranks
+        print(f"batch_size {tc.batch_size} -> {new_bs} (global batch must "
+              f"divide over all {ranks} ranks)", file=sys.stderr)
+        tc = dataclasses.replace(tc, batch_size=new_bs)
     enc = _build_cond_encoder(cfg, model,
                               allow_debug=getattr(args, "debug_encoder",
                                                   False))
     trainer = Trainer(model, tc, enc)
-    (Path(tc.logdir) / "configs").mkdir(parents=True, exist_ok=True)
-    with open(Path(tc.logdir) / "configs" / "merged.json", "w") as f:
-        json.dump(cfg, f, indent=2, default=str)
+    if group is None or group.rank == 0:
+        (Path(tc.logdir) / "configs").mkdir(parents=True, exist_ok=True)
+        with open(Path(tc.logdir) / "configs" / "merged.json", "w") as f:
+            json.dump(cfg, f, indent=2, default=str)
     # the train loader runs the conditioning encode and the transport pack
     # in its producer (batch_transform), overlapping the step
     loaders = _loaders(cfg, tc.batch_size, compact=tc.compact_transport,
@@ -215,13 +254,47 @@ def cmd_train(cfg, args):
         # weights only, a fresh optimizer (main.py:597-609)
         params, frozen = _restore_params(args.finetune_from)
     try:
-        return trainer.fit(loaders["train"], loaders.get("validation"),
-                           params=params, frozen_params=frozen,
-                           resume=args.resume)
+        state = trainer.fit(loaders["train"], loaders.get("validation"),
+                            params=params, frozen_params=frozen,
+                            resume=args.resume)
     finally:
         close = getattr(loaders["train"], "close", None)
         if close is not None:
             close()
+    if group is not None:
+        summary = _multihost_summary(trainer, state, group)
+        print(f"multihost summary {json.dumps(summary)}", file=sys.stderr,
+              flush=True)
+    return state
+
+
+def _multihost_summary(trainer, state, group) -> dict:
+    """This rank's account of a `--multihost` run: the group, the host
+    clock between consecutive train steps (ms), DDP's exchanges and their
+    bytes in the last step, the ms of those exchanges all-reduced alone
+    after the run (a collective: every rank calls it), peak device memory
+    (GiB, None on the CPU) and the kernel wrappers' launch counts."""
+    from upgpt_torch.parallel import mesh
+    from upgpt_torch.utils.diagnostics import kernel_launches
+
+    ends = list(trainer.step_ends)
+    steps = state.step
+    exchanged = state.ddp.exchange_log.steps
+    one_step = exchanged[-1] if exchanged else []
+    dev = group.device
+    return {
+        "rank": group.rank, "world_size": group.world_size,
+        "local_rank": group.local_rank, "backend": group.backend,
+        "device": str(dev), "steps": steps, "global_batch":
+            trainer.config.batch_size,
+        "step_ms": [1e3 * (b - a) for a, b in zip(ends, ends[1:])],
+        "exchanges_per_step": len(one_step),
+        "exchange_bytes_per_step": sum(one_step),
+        "exchange_ms": mesh.time_all_reduce(one_step, dev),
+        "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                            if dev.type == "cuda" else None),
+        "launches": kernel_launches(),
+    }
 
 
 def cmd_sample(cfg, args):
@@ -709,6 +782,15 @@ def _build_serving(cfg, args):
     from upgpt_torch.inference.serving import ServingEngine
 
     _refuse_unported(args)
+    dp = getattr(args, "dp", 1) or 1
+    devices = None
+    if dp > 1:
+        # a replica of the pipeline per card, each batch split over them
+        # (JAX's mesh data axis, its `--dp`); the kernels stay on (P9)
+        cards = torch.cuda.device_count()
+        if dp > cards:
+            raise SystemExit(f"--dp {dp} exceeds {cards} CUDA devices")
+        devices = [torch.device("cuda", i) for i in range(dp)]
     model, grid = _load_model(cfg["model"], args.ckpt)
     enc = _build_cond_encoder(
         cfg, model, allow_debug=getattr(args, "debug_encoder", False))
@@ -739,9 +821,12 @@ def _build_serving(cfg, args):
         )
         label = (f"{sampler}-{steps}" if grid is None
                  else f"distilled-{len(grid)} {grid.tolist()}")
+    if devices is not None:
+        label += f" dp{dp}"
     engine = ServingEngine(
         pipe, batch_size=args.batch, max_delay_s=args.max_delay,
-        base_seed=args.seed, max_in_flight=getattr(args, "in_flight", 2))
+        base_seed=args.seed, max_in_flight=getattr(args, "in_flight", 2),
+        devices=devices)
     builder = RequestBuilder(
         enc, mask_hw=tuple(model.config.latent_size),
         context_dim=model.config.context_dim,
@@ -791,7 +876,8 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("--finetune-from", default=None,
                     help="checkpoint to load weights from (fresh optimizer)")
     sp.add_argument("--multihost", action="store_true",
-                    help="multi-host training (not ported: raises)")
+                    help="data-parallel over the process group torchrun's "
+                         "environment names (one process without one)")
 
     sp = _common(sub, "sample")
     sp.add_argument("--ckpt", required=True,
@@ -864,7 +950,8 @@ def parser() -> argparse.ArgumentParser:
                     help="dispatched-but-unfenced batch depth; 2 overlaps "
                          "the host's dispatch with device compute")
     sp.add_argument("--dp", type=int, default=1,
-                    help="data-parallel serving (not ported: > 1 raises)")
+                    help="data-parallel serving: a replica on each of "
+                         "cuda:0..N-1, every batch split over them")
     sp.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel serving (not ported: > 1 raises)")
     sp.add_argument("--sampler", default=None,

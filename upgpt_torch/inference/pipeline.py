@@ -133,9 +133,7 @@ class GenerationPipeline:
             uncond = self._cond(
                 uncond["c_crossattn"].to(dev, torch.float32),
                 None if concat is None else concat.to(dev, torch.float32))
-        h, w = model.config.latent_size
-        shape = (context.shape[0], h, w, model.config.latent_channels)
-        return cond, uncond, shape
+        return cond, uncond, self._shape(batch)
 
     def _initial_noise(self, batch, shape, generator, shared_x_T,
                        seed_generator=None):
@@ -165,6 +163,38 @@ class GenerationPipeline:
                     (base + s * 0x9E3779B97F4A7C15) % 2**63)
                 rows[s] = torch.randn(shape[1:], generator=g, device=dev)
         return torch.stack([rows[s] for s in seeds])
+
+    def to(self, device) -> "GenerationPipeline":
+        """Move the model to `device` (in place); returns the pipeline."""
+        self.model.to(device)
+        return self
+
+    @torch.inference_mode()
+    def draws(self, batch: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator] = None, *,
+              seed_generator: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
+        """The random tensors `generate(batch, generator, seed_generator=
+        ...)` draws, drawn here in its order on the model's device:
+        `x_T`, then DDIM's per-step `noise` where a step adds noise. Their
+        rows, given to `generate` as `x_T=` / `noise=`, give those rows of
+        the batch's images: what a replica of a data-parallel engine takes
+        of its batch."""
+        shape = self._shape(batch)
+        out = {"x_T": self._initial_noise(batch, shape, generator, False,
+                                          seed_generator)}
+        if self.sampler == "ddim" and bool((self.ddim.sigmas != 0).any()):
+            out["noise"] = torch.stack([
+                torch.randn(shape, generator=generator,
+                            device=self.model.device)
+                for _ in range(self.ddim.num_steps)])
+        return out
+
+    def _shape(self, batch) -> Tuple[int, ...]:
+        """The latent shape of a batch."""
+        cfg = self.model.config
+        return ((batch["text_emb"].shape[0],) + tuple(cfg.latent_size)
+                + (cfg.latent_channels,))
 
     def _eps_model(self):
         model = self.model
@@ -400,6 +430,25 @@ class ChainedUpscalePipeline:
             sampler=sampler, output_uint8=output_uint8,
             schedule_method=schedule_method)
         self.lr_hw = tuple(lr_hw or upscale_model.config.latent_size)
+
+    def to(self, device) -> "ChainedUpscalePipeline":
+        """Move both stages' models to `device` (in place)."""
+        self.base.to(device)
+        self.up.to(device)
+        return self
+
+    @torch.inference_mode()
+    def draws(self, batch: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator] = None, *,
+              seed_generator: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
+        """`generate`'s draws in its order: the 256 stage's (`x_T`,
+        `noise`), then the upscale stage's (`up_x_T`, `up_noise`)."""
+        out = self.base.draws(batch, generator,
+                              seed_generator=seed_generator)
+        up = self.up.draws({"text_emb": batch["text_emb"]}, generator)
+        out.update((f"up_{k}", v) for k, v in up.items())
+        return out
 
     def generate(self, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None, *,

@@ -1,5 +1,5 @@
 """Serving engine: request batching over the generation pipeline, on one
-device.
+device or on replicas of it.
 
 Port of `upgpt_tpu.inference.serving`. The pipeline's throughput comes from
 batch occupancy, so concurrent requests are packed into fixed-size
@@ -28,10 +28,24 @@ batch's arrays reach the device through pinned memory without blocking,
 and `x_T_seed` stays on the host, so a dispatch makes no device sync. A
 result is reproducible given (`base_seed`, the batch's composition and
 its index), as the JAX engine's `fold_in(base_key, i)` is.
+
+Data parallelism (`devices`, `cli serve --dp N`; JAX shards each batch
+over its mesh's data axis, :83-115): one replica of the pipeline per
+device, each packed batch split by rows into equal parts, each part run
+on its replica under that device's own fence event, the images gathered
+in request order. The batch's randomness is drawn as one device would
+draw it (`pipeline.draws`, from batch i's generators on the first
+replica's device) and each replica takes its rows, so N replicas give the
+one-device engine's images for the same requests and seeds. The replicas
+run the hand-written kernels as one device does (JAX turns its Pallas
+kernels off under --dp, because GSPMD cannot partition them; ROADMAP §3
+P9).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import queue
 import threading
 import time
@@ -42,6 +56,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """`cuda` as the current card's `cuda:i`, as a model's device reads."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 @dataclass
@@ -85,15 +106,36 @@ class ServingEngine:
         max_delay_s: float = 0.25,
         base_seed: int = 0,
         max_in_flight: int = 2,
+        devices: Optional[List] = None,
     ):
         """`max_in_flight`: dispatched-but-unfenced batch depth. 1 overlaps
         only the copy to the host with compute; 2 (default) also overlaps
         the host's pack and dispatch of the next batch, which matter at low
-        step counts."""
+        step counts.
+
+        `devices`: one replica of the pipeline per entry (a device may
+        repeat); the first is the pipeline itself where it already lies
+        there, every other a copy moved to its device. `batch_size` must
+        divide over them, as JAX's over its mesh's data axis."""
         self.pipeline = pipeline
         # where the model (a chain's first stage) lives
         stage = pipeline.base if hasattr(pipeline, "base") else pipeline
         self.device = stage.model.device
+        self.replicas = [pipeline]
+        self.devices = [self.device]
+        if devices is not None:
+            if not devices:
+                raise ValueError("devices: at least one")
+            if int(batch_size) % len(devices):
+                raise ValueError(f"batch_size {batch_size} not divisible by "
+                                 f"the {len(devices)} replicas")
+            self.devices = [_indexed(torch.device(d)) for d in devices]
+            self.replicas = [
+                pipeline if i == 0 and d == self.device
+                else copy.deepcopy(pipeline).to(d)
+                for i, d in enumerate(self.devices)]
+            self.pipeline = self.replicas[0]
+            self.device = self.devices[0]
         self.batch_size = int(batch_size)
         self.max_delay_s = float(max_delay_s)
         self.base_seed = int(base_seed)
@@ -189,20 +231,50 @@ class ServingEngine:
 
     def dispatch(self, batch: Dict[str, np.ndarray], index: int):
         """Launch the generation of packed batch `index`: (images on the
-        device, a CUDA event recorded after them, or None on the CPU).
-        Nothing here waits on the device."""
+        device, a CUDA event recorded after them, or None on the CPU);
+        with replicas, a list of each replica's part and a list of their
+        events. Nothing here waits on the device."""
         gen, host_gen = self.generators(index)
-        out = self.pipeline.generate(self.to_device(batch), gen,
-                                     seed_generator=host_gen)
-        event = None
-        if out.is_cuda:
-            event = torch.cuda.Event()
-            event.record()
-        return out, event
+        full = self.to_device(batch)
+        if len(self.replicas) == 1:
+            out = self.pipeline.generate(full, gen, seed_generator=host_gen)
+            return out, self._record(out)
+        draws = self.pipeline.draws(full, gen, seed_generator=host_gen)
+        per = self.batch_size // len(self.replicas)
+        outs, events = [], []
+        for r, (pipe, dev) in enumerate(zip(self.replicas, self.devices)):
+            rows = slice(r * per, (r + 1) * per)
+            on_dev = (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext())
+            with on_dev:
+                part = {k: (v[rows] if k == "x_T_seed" else
+                            v[rows].to(dev, non_blocking=True))
+                        for k, v in full.items()}
+                kw = {k: (v[:, rows] if k.endswith("noise") else v[rows]
+                          ).to(dev, non_blocking=True)
+                      for k, v in draws.items()}
+                out = pipe.generate(part, **kw)
+                outs.append(out)
+                events.append(self._record(out))
+        return outs, events
 
     @staticmethod
-    def fetch(out: torch.Tensor, event) -> np.ndarray:
-        """Wait for a dispatched batch and copy its images to the host."""
+    def _record(out: torch.Tensor):
+        """A CUDA event after `out` on its device's current stream; None
+        on the CPU."""
+        if not out.is_cuda:
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(out.device))
+        return event
+
+    @staticmethod
+    def fetch(out, event) -> np.ndarray:
+        """Wait for a dispatched batch and copy its images to the host;
+        with replicas, each part after its own event, in request order."""
+        if isinstance(out, list):
+            return np.concatenate([ServingEngine.fetch(o, e)
+                                   for o, e in zip(out, event)])
         if event is not None:
             event.synchronize()
         return out.cpu().numpy()

@@ -34,11 +34,28 @@ shadow freezes at decay 0.9999 (the reference fault R1, ROADMAP.md §3).
 
 The steps run where the model lies. Randomness comes from one
 `torch.Generator` (the draws of `LatentDiffusion.training_draws`), or from
-explicit draws.
+explicit draws. In a process group each rank holds its rows of the global
+batch and draws the whole global batch's randomness, keeping its rows
+(`rank_draws`), as JAX's sharded `jit` draws once over the global batch.
+
+Data parallelism: `data_parallel` wraps the training loss in
+`DistributedDataParallel` (the reference's Lightning DDP, main.py:581), and
+a state that carries it (`state.ddp`) runs the loss through the wrapper's
+forward, where DDP prepares the gradient exchange of the backward; a call
+of `model.training_loss` past the wrapper would leave each rank stepping
+on its own gradients. After the backward every rank holds the global mean
+gradient, so `grad_norm` is the global norm, and the loss metrics are
+averaged over the group. `FusedTrainState` reads the exchanged gradients.
+Under MultiSteps accumulation the micro-steps skip DDP's exchange
+(`no_sync`), each rank folds its own gradients into its running mean, and
+the update averages the means over the group: one exchange an update.
+There `grad_norm` is the global norm of the averaged mean on the update
+call and NaN on the calls between, which form no global gradient.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -46,6 +63,7 @@ import numpy as np
 import torch
 
 from upgpt_torch.diffusion.latent_diffusion import LatentDiffusion
+from upgpt_torch.parallel import mesh, multihost
 from upgpt_torch.training.ema import EmaState, ema_decay, ema_init, ema_update
 from upgpt_torch.training.lr import lambda_linear_schedule
 
@@ -63,6 +81,8 @@ class TrainState:
     updates: int = 0  # optimizer updates applied: the schedule's count
     mini_step: int = 0  # calls folded into `acc` since the last update
     acc: Optional[List[torch.Tensor]] = None  # the running mean gradient
+    # the gradient exchange (`data_parallel`), or None on one process
+    ddp: Optional[torch.nn.Module] = None
 
     @torch.no_grad()
     def apply_gradients(self) -> "TrainState":
@@ -82,6 +102,10 @@ class TrainState:
             del delta
             self.mini_step = (self.mini_step + 1) % self.accumulate
             if self.mini_step == 0:
+                if self.ddp is not None:
+                    # the micro-steps skipped DDP's exchange: average the
+                    # ranks' running means, one exchange an update
+                    mesh.mean_gradients_(self.acc)
                 for p, a in zip(self.params, self.acc):
                     p.grad = a
                 self.acc = None
@@ -135,6 +159,9 @@ class FusedTrainState:
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.01
+    # the gradient exchange (`data_parallel`): `.grad` holds the global
+    # mean when the update reads it
+    ddp: Optional[torch.nn.Module] = None
 
     @torch.no_grad()
     def apply_gradients(self) -> "FusedTrainState":
@@ -256,22 +283,117 @@ def create_fused_train_state(
         weight_decay=weight_decay)
 
 
+class TrainingLoss(torch.nn.Module):
+    """`LatentDiffusion.training_loss` as a module's forward, the module
+    DDP wraps: (batch, draws) -> (loss, metrics)."""
+
+    def __init__(self, model: LatentDiffusion):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                draws: Dict[str, torch.Tensor]):
+        return self.model.training_loss(batch, draws=draws)
+
+
+class ExchangeLog:
+    """DDP's gradient exchanges, step by step: `steps[i]` holds the bytes
+    of each bucket step i exchanged (DDP regroups its buckets after the
+    first step), counted by a communication hook around DDP's own
+    all-reduce (the bucket divided by the world size, then summed)."""
+
+    def __init__(self):
+        self.steps: List[List[int]] = []
+        self._open: List[int] = []  # the buckets of the step in flight
+
+    def hook(self, process_group, bucket):
+        from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+        buf = bucket.buffer()
+        self._open.append(buf.numel() * buf.element_size())
+        return default_hooks.allreduce_hook(process_group, bucket)
+
+    def end_step(self) -> None:
+        """Close the step's record (after its backward)."""
+        if self._open:
+            self.steps.append(self._open)
+            self._open = []
+
+
+def data_parallel(model: LatentDiffusion) -> torch.nn.Module:
+    """The training loss of `model` under `DistributedDataParallel` over
+    the process group `multihost.initialize` joined, on this rank's
+    device; `.exchange_log` counts its exchanges. Call it after the train
+    state is created (which freezes the VAE): DDP exchanges the gradients
+    of the parameters that require them, and at construction broadcasts
+    rank 0's weights and buffers to every rank. Every trainable parameter
+    receives a gradient each step, so the unused-parameter search is off
+    (tests/test_torch_parallel.py checks)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    if multihost.group() is None:
+        raise RuntimeError("data_parallel needs a process group "
+                           "(multihost.initialize)")
+    dev = model.device
+    ddp = DistributedDataParallel(
+        TrainingLoss(model),
+        device_ids=[dev.index] if dev.type == "cuda" else None,
+        broadcast_buffers=False, find_unused_parameters=False)
+    ddp.exchange_log = ExchangeLog()
+    ddp.register_comm_hook(None, ddp.exchange_log.hook)
+    return ddp
+
+
+def rank_draws(model: LatentDiffusion, batch_size: int,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+    """The training draws of this rank's `batch_size` rows: the global
+    batch's draws (`batch_size` times the group's size) from `generator`,
+    then this rank's rows; on one process, `model.training_draws`."""
+    draws = model.training_draws(batch_size * multihost.process_count(),
+                                 generator)
+    return mesh.local_rows(draws)
+
+
 def train_step(model: LatentDiffusion, state: TrainState,
                batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                draws: Optional[Dict[str, torch.Tensor]] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One optimisation step. Metrics (0-d tensors on the model's device):
-    loss, loss_simple, loss_vlb and grad_norm, the global L2 norm of the
-    gradients before the update."""
+    """One optimisation step on this rank's rows of the batch; `draws`,
+    where given, are those rows' draws. Metrics (0-d tensors on the
+    model's device): loss, loss_simple, loss_vlb (averaged over the group)
+    and grad_norm, the global L2 norm of the gradients before the update
+    (see the module docstring for accumulation under DDP)."""
     for p in state.params:
         p.grad = None
-    loss, metrics = model.training_loss(batch, generator, draws)
-    loss.backward()
-    grad_norm = torch.nn.utils.get_total_norm(
-        [p.grad for p in state.params if p.grad is not None])
+    if draws is None:
+        draws = rank_draws(model, batch["image"].shape[0], generator)
+    ddp = state.ddp
+    # MultiSteps' k (FusedTrainState has none)
+    accumulate = getattr(state, "accumulate", 1)
+    accumulating = ddp is not None and accumulate > 1
+    updating = not accumulating or state.mini_step + 1 == accumulate
+    with ddp.no_sync() if accumulating else contextlib.nullcontext():
+        # through the wrapper's forward: DDP's reducer exchanges the
+        # gradients during this backward
+        loss, metrics = (model.training_loss(batch, draws=draws)
+                         if ddp is None else ddp(batch, draws))
+        loss.backward()
+    if ddp is not None:
+        ddp.exchange_log.end_step()
+    if not accumulating:
+        grad_norm = torch.nn.utils.get_total_norm(
+            [p.grad for p in state.params if p.grad is not None])
     state.apply_gradients()
+    if accumulating:
+        # the averaged running mean, now in `.grad`, on the update call
+        grad_norm = (torch.nn.utils.get_total_norm(
+            [p.grad for p in state.params]) if updating else
+            torch.full((), float("nan"), device=loss.device))
     metrics = {k: v.detach() for k, v in metrics.items()}
+    if ddp is not None:
+        metrics = mesh.mean_over_group(metrics)
     metrics["grad_norm"] = grad_norm
     return state, metrics
 
@@ -282,10 +404,11 @@ def eval_step(model: LatentDiffusion, state: TrainState,
               generator: Optional[torch.Generator] = None,
               draws: Optional[Dict[str, torch.Tensor]] = None
               ) -> Dict[str, torch.Tensor]:
-    """Validation losses with the raw weights and, under `<key>_ema`, with
-    the EMA shadow (reference ddpm.py:365-372); both on the same draws."""
+    """Validation losses of this rank's rows with the raw weights and,
+    under `<key>_ema`, with the EMA shadow (reference ddpm.py:365-372);
+    both on the same draws. The caller averages them over the group."""
     if draws is None:
-        draws = model.training_draws(batch["image"].shape[0], generator)
+        draws = rank_draws(model, batch["image"].shape[0], generator)
     _, metrics = model.training_loss(batch, draws=draws)
     out = dict(metrics)
     if state.ema is not None:

@@ -1,4 +1,4 @@
-"""Training driver: the main.py/Lightning-Trainer equivalent on one card.
+"""The training loop: the main.py/Lightning-Trainer equivalent.
 
 Port of `upgpt_tpu.training.trainer` (reference main.py:518-801 and its
 callbacks):
@@ -37,11 +37,22 @@ run there on the same side stream, ahead of the step, whose stream waits
 on the event recorded after them. The embeddings never return to the host.
 The debug encoder's embeddings are made on the host, as before.
 
-One card, no mesh: data parallelism waits on DDP (ROADMAP §1 item 10).
+Data parallelism (`cli train --multihost`): in a process group
+(`upgpt_torch.parallel.multihost`) each rank trains on its rows of every
+global batch, the loaders slicing it, and exchanges gradients through DDP
+(`train_state.data_parallel`). Every rank draws the global batch's
+randomness and keeps its rows, so N ranks step as one process would on
+the global batch. The validation means are averaged over the group before
+`monitored`, best and early stopping read them, so every rank takes the
+same decisions. Rank 0 alone writes: metrics.jsonl, TensorBoard, wandb,
+every checkpoint and the image grids (sampled from its own rows, as JAX's
+grid covers its host's slice). Resume and `--finetune-from` read the same
+file on every rank.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -57,10 +68,11 @@ import torch
 
 from upgpt_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from upgpt_torch.diffusion.latent_diffusion import LatentDiffusion
+from upgpt_torch.parallel import mesh, multihost
 from upgpt_torch.training.lr import lambda_linear_schedule
 from upgpt_torch.training.train_state import (
-    TrainState, create_fused_train_state, create_train_state, eval_step,
-    scaled_learning_rate, train_step,
+    TrainState, create_fused_train_state, create_train_state, data_parallel,
+    eval_step, scaled_learning_rate, train_step,
 )
 
 
@@ -235,13 +247,36 @@ class Trainer:
         self.config = config
         self.cond_encoder = cond_encoder
         self.logdir = Path(config.logdir)
-        (self.logdir / "checkpoints").mkdir(parents=True, exist_ok=True)
-        (self.logdir / "images").mkdir(parents=True, exist_ok=True)
-        self._metrics_log = open(self.logdir / "metrics.jsonl", "a")
+        # rank 0 writes every file under the logdir (Lightning's rank-zero
+        # semantics); the others hold the same replicated state
+        self._primary = multihost.is_primary()
+        self._metrics_log = None
+        self._tb = None
+        self._wandb = None
         self._pending_save = None  # (thread, errors) of the writer in flight
         self._transport_memo: Dict[str, bool] = {}
         self._copy_stream = None
         self._fit_epoch = 0
+        # host clock after each of the last 1,000 train steps of `fit`
+        # (the multihost summary's ms between steps)
+        self.step_ends = collections.deque(maxlen=1000)
+        if self._primary:
+            self._open_logs()
+        # config.batch_size is the global batch, so the rule scales with
+        # accumulate * batch_size (main.py:748-767's ngpu * bs)
+        self.learning_rate = scaled_learning_rate(
+            config.base_learning_rate, config.batch_size, 1,
+            config.accumulate_grad_batches, config.scale_lr)
+        self.scheduler = lambda_linear_schedule(
+            [config.warm_up_steps], [1.0], [1.0],
+            [config.scheduler_f_start], [10**13])
+
+    def _open_logs(self) -> None:
+        """The logdir, metrics.jsonl, TensorBoard and wandb (rank 0)."""
+        config = self.config
+        (self.logdir / "checkpoints").mkdir(parents=True, exist_ok=True)
+        (self.logdir / "images").mkdir(parents=True, exist_ok=True)
+        self._metrics_log = open(self.logdir / "metrics.jsonl", "a")
         # optional TensorBoard stream (the TestTube logger equivalent,
         # main.py:615-639); jsonl only where tensorboard is absent
         try:
@@ -250,7 +285,6 @@ class Trainer:
             self._tb = SummaryWriter(str(self.logdir / "tb"))
         except Exception:  # noqa: BLE001 — tensorboard is optional
             self._tb = None
-        self._wandb = None
         if config.wandb:
             try:
                 import wandb
@@ -263,14 +297,6 @@ class Trainer:
                 print(f"wandb disabled ({e!r}); logging to jsonl/tb only",
                       file=sys.stderr)
                 self._wandb = None
-        # config.batch_size is the global batch, so the rule scales with
-        # accumulate * batch_size (main.py:748-767's ngpu * bs)
-        self.learning_rate = scaled_learning_rate(
-            config.base_learning_rate, config.batch_size, 1,
-            config.accumulate_grad_batches, config.scale_lr)
-        self.scheduler = lambda_linear_schedule(
-            [config.warm_up_steps], [1.0], [1.0],
-            [config.scheduler_f_start], [10**13])
 
     # ------------- steps -------------
 
@@ -339,6 +365,8 @@ class Trainer:
         At most one write is in flight: a new save or a restore joins the
         previous one first and raises its error. `weights_only` (the
         trainstep snapshots, main.py:718) leaves the optimizer out."""
+        if not self._primary:
+            return  # rank 0 saves; every rank holds the same state
         self._join_pending_save()
         path = self.logdir / "checkpoints" / name
         payload = self._payload(state, weights_only)
@@ -403,6 +431,8 @@ class Trainer:
     # ------------- logging -------------
 
     def _log(self, record: Dict[str, Any]) -> None:
+        if self._metrics_log is None:
+            return  # not rank 0
         rec = {k: (float(v) if hasattr(v, "item") else v)
                for k, v in record.items()}
         self._metrics_log.write(json.dumps(rec) + "\n")
@@ -434,8 +464,12 @@ class Trainer:
     def log_images(self, state, batch: Dict, step: int) -> None:
         """Short-DDIM EMA sample grid, the progressive rows and the
         conditioning strips of an encoded host batch (ImageLogger,
-        main.py:302-450)."""
+        main.py:302-450). Rank 0 samples its rows and writes them; the
+        other ranks skip it (no collective runs inside)."""
         from upgpt_torch.inference.pipeline import GenerationPipeline
+
+        if not self._primary:
+            return
 
         strips = {k: np.asarray(batch[k])
                   for k in ("src_image", "smpl_image", "styles")
@@ -563,6 +597,7 @@ class Trainer:
         return batch
 
     def _create_state(self):
+        """The train state; in a process group, with DDP's exchange."""
         cfg = self.config
         use_ema = cfg.use_ema and getattr(self.model.config, "use_ema", True)
         if cfg.fused_optimizer:
@@ -570,14 +605,24 @@ class Trainer:
                 raise ValueError(
                     "fused_optimizer does not compose with "
                     "accumulate_grad_batches>1 (optax.MultiSteps); pick one")
-            return create_fused_train_state(
+            state = create_fused_train_state(
                 self.model, self.learning_rate, self.scheduler,
                 use_ema=use_ema, ema_decay=cfg.ema_decay,
                 moment_dtype=cfg.moment_dtype)
-        return create_train_state(
-            self.model, self.learning_rate, self.scheduler, use_ema=use_ema,
-            ema_decay=cfg.ema_decay,
-            accumulate_grad_batches=cfg.accumulate_grad_batches)
+        else:
+            state = create_train_state(
+                self.model, self.learning_rate, self.scheduler,
+                use_ema=use_ema, ema_decay=cfg.ema_decay,
+                accumulate_grad_batches=cfg.accumulate_grad_batches)
+        if multihost.group() is not None:
+            state.ddp = data_parallel(self.model)
+        return state
+
+    def _group_mean(self, metrics: Dict[str, torch.Tensor]
+                    ) -> Dict[str, float]:
+        """Validation metrics averaged over the group, as floats: every
+        rank reads the same numbers."""
+        return {k: float(v) for k, v in mesh.mean_over_group(metrics).items()}
 
     def fit(self, train_loader, val_loader=None,
             params: Optional[Dict[str, torch.Tensor]] = None,
@@ -637,7 +682,7 @@ class Trainer:
         # reference bbox.yaml:189)
         if val_loader is not None and state.step == 0:
             sb = self._ready(self._device_batch(next(val_loader.epoch(0))))
-            sanity = self._eval_step(state, sb)
+            sanity = self._group_mean(self._eval_step(state, sb))
             self._log({"step": 0, "sanity": 1,
                        **{f"val/{k}": v for k, v in sanity.items()}})
         # the epoch counter travels with the checkpoint (meta sidecar);
@@ -656,6 +701,7 @@ class Trainer:
                 for item in transfer_prefetch(train_loader.epoch(epoch),
                                               self._device_batch):
                     state, metrics = self._train_step(state, self._ready(item))
+                    self.step_ends.append(time.perf_counter())
                     step = state.step
                     if step % cfg.log_every == 0:
                         self._log({"step": step, "epoch": epoch,
@@ -681,10 +727,10 @@ class Trainer:
                 if val_loader is not None:
                     vals: Dict[str, list] = {}
                     for raw in val_loader.epoch(epoch):
-                        out = self._eval_step(
-                            state, self._ready(self._device_batch(raw)))
+                        out = self._group_mean(self._eval_step(
+                            state, self._ready(self._device_batch(raw))))
                         for k, v in out.items():
-                            vals.setdefault(k, []).append(float(v))
+                            vals.setdefault(k, []).append(v)
                     val_metrics = {f"val/{k}": float(np.mean(v))
                                    for k, v in vals.items()}
                     self._log({"step": state.step, "epoch": epoch,

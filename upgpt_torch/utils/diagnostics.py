@@ -13,6 +13,8 @@ CUDACallback, main.py:453-473,818):
   `assert not torch.isnan(...)`, ddpm.py:177). It reads the tensors on
   the host, a sync: call it where the host needs the answer.
 - `count_params` and `cast_floating` (bf16 weights for serving).
+- `kernel_launches`: the kernel wrappers' launch counters, by kernel and
+  by the routes away from one.
 """
 
 from __future__ import annotations
@@ -40,6 +42,38 @@ def profile_trace(logdir: str, name: str = "trace"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(Path(logdir) / f"{name}.json"))
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each hand-written kernel's launches since its counter was last
+    reset (a process starts at 0), and the counted routes away from the
+    kernels: the flash kernels' FMA instantiations, the flash backward's
+    plain autograd, the GroupNorm and half-step gates' plain routes and
+    the half-step kernel's float32 instantiation."""
+    from upgpt_torch.ops import flash_attention as fa
+    from upgpt_torch.ops import fused_gn as fg
+    from upgpt_torch.ops import fused_resblock as frb
+    from upgpt_torch.ops import fused_transformer as ft
+    from upgpt_torch.ops import selfattn_leg as sl
+
+    return {
+        "fused_transformer_block": ft.fused_transformer_block.launches,
+        "flash_attention": fa.flash_attention.launches,
+        "flash_backward_dq": fa.flash_backward_dq.launches,
+        "flash_backward_dkv": fa.flash_backward_dkv.launches,
+        "fused_group_norm": fg.fused_group_norm.launches,
+        "tiled_group_norm": fg.tiled_group_norm.launches,
+        "fused_resblock": frb.fused_gn_silu_conv.launches,
+        "selfattn_fullwidth": sl.selfattn_fullwidth.launches,
+        "selfattn_perhead": sl.selfattn_perhead.launches,
+        "flash_attention_fma": fa.flash_attention.fma_launches,
+        "flash_backward_dq_fma": fa.flash_backward_dq.fma_launches,
+        "flash_backward_dkv_fma": fa.flash_backward_dkv.fma_launches,
+        "flash_reference_backwards": fa.flash_attention.reference_backwards,
+        "fused_group_norm_plain_routes": fg.fused_group_norm.plain_routes,
+        "fused_resblock_plain_routes": frb.fused_gn_silu_conv.plain_routes,
+        "fused_resblock_fp32": frb.fused_gn_silu_conv.fp32_launches,
+    }
 
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:
