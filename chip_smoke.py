@@ -171,7 +171,19 @@ CUDA toolkit. It
    256x192 PNGs each), `/api/upscale` (two 512x384 PNGs at 200 steps) and
    a 404, each request's launches against the structure and its latency;
    the drop, the checkpoints and the report are removed after;
-11. prints a JSON line of per-kernel results, the card's name and power
+11. orbax: the JAX package's orbax checkpoints read by the port
+   (`upgpt_torch.convert.orbax` over the zstd core, built here with g++):
+   every leaf of the committed `tiny_trainer` fixture against its
+   MANIFEST.json (sha256), every leaf of the full-width interp_256
+   `interp_256_tiled` fixture (~2 GB decoded) bit for bit against its
+   regenerated pattern, with the host's decode rate; then `python -m
+   upgpt_torch.cli sample` (interp_256, DDIM-4, batch 2, the debug
+   encoder) from the orbax directory and from a `.pt` that
+   `checkpoint.save_checkpoint` wrote from the regenerated arrays: the
+   JPEGs byte for byte equal, the orbax run's launches against the
+   structure; and a copy with one byte of its root B-tree node flipped
+   refused with the CRC-32C error;
+12. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
 On every path bf16 attention must run the tensor-core flash kernels: the
@@ -4367,6 +4379,242 @@ def bringup_and_app_run(dev, card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     return {"bringup_run": bring, "app_run": served}
 
+# the orbax phase: the committed fixtures of the JAX package's orbax
+# checkpoints (tests/torch_fixtures/orbax, written by its
+# StandardCheckpointer) read by the port on the card's machine, which has
+# no JAX, orbax, tensorstore or zstd module; `cli sample` from the
+# full-width tree at DDIM-4, batch 2
+ORBAX_FIXTURES = os.path.join("tests", "torch_fixtures", "orbax")
+ORBAX_BATCH, ORBAX_STEPS = 2, 4
+
+
+def _fixture_pattern(repo: str):
+    """`tests/torch_fixtures/orbax/pattern.py` (jax-free): the full-width
+    fixture's leaves."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "orbax_pattern", os.path.join(repo, ORBAX_FIXTURES, "pattern.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _nested(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    out = {}
+    for path, value in flat.items():
+        *parents, name = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = value
+    return out
+
+
+def _leaf_bytes(value) -> bytes:
+    import numpy as np
+
+    if isinstance(value, torch.Tensor):  # bfloat16
+        return value.view(torch.int16).numpy().tobytes()
+    return np.asarray(value).tobytes()
+
+
+def _flat_leaves(tree, prefix: str = "") -> dict:
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, (dict, list)):
+            out.update(_flat_leaves(v, path))
+        elif v is not None:
+            out[path] = v
+    return out
+
+
+def orbax_run(dev, card: str, repo: str) -> dict:
+    """The orbax phase in a temporary directory under upgpt_torch/_build:
+    the zstd core's build, the two fixtures read leaf for leaf, `cli
+    sample` from the orbax tree against the `.pt` of the same weights
+    (JPEGs byte for byte, launches against `expected_sampling_counts`),
+    and a corrupted copy refused by its CRC-32C."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from upgpt_torch import cli
+    from upgpt_torch.checkpoint import save_checkpoint
+    from upgpt_torch.config import instantiate_from_config, merge_configs
+    from upgpt_torch.convert.from_jax import load_jax_params
+    from upgpt_torch.convert.ocdbt import NODE_MAGIC
+    from upgpt_torch.convert.orbax import OrbaxCheckpoint, restore
+    from upgpt_torch.data.tree import write_fashion_tree
+    from upgpt_torch.native import zstd
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    zstd.build()
+    build_s = time.perf_counter() - t0
+    print(f"zstd core build (g++ -O3): {build_s:.3f} s", flush=True)
+
+    # --- tiny_trainer: every leaf against its MANIFEST.json ---
+    fixtures = os.path.join(repo, ORBAX_FIXTURES)
+    trainer_dir = os.path.join(fixtures, "tiny_trainer")
+    with open(os.path.join(trainer_dir, "MANIFEST.json")) as f:
+        manifest = json.load(f)["leaves"]
+    leaves = _flat_leaves(restore(trainer_dir))
+    if set(leaves) != {m["path"] for m in manifest}:
+        raise RuntimeError(f"tiny_trainer leaves {sorted(leaves)[:5]}... "
+                           f"against its manifest")
+    for m in manifest:
+        v = leaves[m["path"]]
+        if (list(np.shape(v)) != m["shape"] or hashlib.sha256(
+                _leaf_bytes(v)).hexdigest() != m["sha256"]):
+            raise RuntimeError(f"tiny_trainer leaf {m['path']} differs from "
+                               f"its manifest")
+    print(f"orbax tiny_trainer: {len(manifest)} leaves equal to "
+          f"MANIFEST.json (sha256)", flush=True)
+
+    # --- interp_256_tiled: every leaf against the regenerated pattern ---
+    pattern = _fixture_pattern(repo)
+    tiled = os.path.join(fixtures, "interp_256_tiled")
+    with open(os.path.join(tiled, "MANIFEST.json")) as f:
+        manifest = json.load(f)["leaves"]
+    ckpt = OrbaxCheckpoint(tiled)
+    decode_s, nbytes, regenerated = 0.0, 0, {}
+    for m in manifest:
+        t0 = time.perf_counter()
+        got = ckpt.read_array(m["path"].replace("/", "."))
+        decode_s += time.perf_counter() - t0
+        want = pattern.leaf(m["path"], m["shape"])
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            raise RuntimeError(f"interp_256_tiled leaf {m['path']} differs "
+                               f"from its pattern")
+        nbytes += got.nbytes
+        regenerated[m["path"]] = want
+        del got
+    gb = nbytes / 1e9
+    print(f"orbax interp_256_tiled: {len(manifest)} leaves, {gb:.3f} GB "
+          f"decoded bit for bit equal to the pattern in {decode_s:.3f} s = "
+          f"{gb / decode_s:.3f} GB/s on the host (reads, OCDBT walk and "
+          f"zstd; {ckpt.store.nodes} B-tree node(s), height "
+          f"{ckpt.store.height})", flush=True)
+
+    base = os.path.join(repo, "upgpt_torch", "_build")
+    os.makedirs(base, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="orbax-", dir=base)
+    try:
+        # --- the .pt of the same weights, through the bridge ---
+        t0 = time.perf_counter()
+        model = load_jax_params(build_latent_diffusion(
+            "interp_256", device=dev), _nested(regenerated))
+        pt = os.path.join(work, "interp_256.pt")
+        save_checkpoint(model, pt)
+        del model, regenerated
+        torch.cuda.empty_cache()
+        pt_s = time.perf_counter() - t0
+
+        config = os.path.join(repo, "configs", "deepfashion",
+                              "interp_256.yaml")
+        tree = write_fashion_tree(os.path.join(work, "fashion"),
+                                  {"train": (1, 1), "validation": (2, 0)})
+        dotlist = [f"data.{s}.params.{k}={tree[v]}"
+                   for s in ("train", "validation", "test")
+                   for k, v in (("folder", "folder"),
+                                ("data_file", "data_file"))]
+        dotlist += [f"data.train.params.pair_file=['{tree['train']}']",
+                    f"data.validation.params.pair_file="
+                    f"['{tree['validation']}']",
+                    f"data.test.params.pair_file=['{tree['validation']}']"]
+        model_cfg = merge_configs([config], dotlist)["model"]
+        with torch.device("meta"):
+            meta_model = instantiate_from_config(
+                {**model_cfg, "params": {**model_cfg["params"],
+                                         "device": "meta"}})
+        expected = expected_sampling_counts(
+            meta_model, ORBAX_BATCH, context_tokens(meta_model), ORBAX_STEPS)
+        files, counts, walls = {}, {}, {}
+        for kind, ckpt_path in (("pt", pt), ("orbax", tiled)):
+            out = os.path.join(work, f"samples-{kind}")
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            imgs = cli.main(["sample", "--base", config, "--debug-encoder",
+                             "--ckpt", ckpt_path, "--batch",
+                             str(ORBAX_BATCH), "--steps", str(ORBAX_STEPS),
+                             "--out", out] + dotlist)
+            walls[kind] = time.perf_counter() - t0
+            counts[kind] = _read_counts()
+            if imgs.shape != (ORBAX_BATCH, 256, 192, 3) or not np.isfinite(
+                    imgs).all():
+                raise RuntimeError(f"cli sample from the {kind} checkpoint: "
+                                   f"{imgs.shape}, finite "
+                                   f"{np.isfinite(imgs).all()}")
+            files[kind] = {f: open(os.path.join(out, f), "rb").read()
+                           for f in sorted(os.listdir(out))}
+        if len(files["orbax"]) != ORBAX_BATCH or files["orbax"] != files["pt"]:
+            raise RuntimeError(f"cli sample from the orbax tree wrote "
+                               f"{sorted(files['orbax'])}, not the .pt run's "
+                               f"bytes {sorted(files['pt'])}")
+        for kind in ("orbax", "pt"):
+            if counts[kind] != expected:
+                raise RuntimeError(f"cli sample ({kind}) launches "
+                                   f"{counts[kind]}, expected {expected}")
+        print(f"cli sample interp_256 DDIM-{ORBAX_STEPS} batch "
+              f"{ORBAX_BATCH} from the orbax tree: "
+              f"{len(files['orbax'])} JPEGs byte for byte equal to the "
+              f".pt run's ({pt_s:.3f} s to write the .pt); wall "
+              f"{walls['orbax']:.3f} s (orbax) and {walls['pt']:.3f} s "
+              f"(.pt), model build and load included; launches "
+              f"{counts['orbax']}", flush=True)
+
+        # --- a flipped byte in the root B-tree node ---
+        bad = os.path.join(work, "corrupt")
+        shutil.copytree(tiled, bad)
+        nodes = []
+        for name in sorted(os.listdir(os.path.join(bad, "d"))):
+            path = os.path.join(bad, "d", name)
+            with open(path, "rb") as f:
+                if int.from_bytes(f.read(4), "big") == NODE_MAGIC:
+                    nodes.append(path)
+        if len(nodes) != 1:
+            raise RuntimeError(f"root node files {nodes}")
+        with open(nodes[0], "r+b") as f:
+            f.seek(os.path.getsize(nodes[0]) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0x40]))
+        t0 = time.perf_counter()
+        try:
+            cli.main(["sample", "--base", config, "--debug-encoder",
+                      "--ckpt", bad, "--batch", str(ORBAX_BATCH), "--steps",
+                      str(ORBAX_STEPS), "--out",
+                      os.path.join(work, "samples-bad")] + dotlist)
+        except ValueError as err:
+            if "CRC-32C" not in str(err) or os.path.basename(
+                    nodes[0]) not in str(err):
+                raise RuntimeError(f"the corrupted copy failed otherwise: "
+                                   f"{err}") from err
+            refusal = str(err)
+        else:
+            raise RuntimeError("cli sample read the corrupted copy")
+        print(f"cli sample on a copy with one byte of its root node flipped: "
+              f"refused in {time.perf_counter() - t0:.3f} s ({refusal})",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"orbax phase: {phase_s:.3f} s", flush=True)
+    return {"orbax_run": {
+        "launches": counts["orbax"], "build_s": build_s,
+        "decoded_gb": gb, "decode_s": decode_s, "decode_gb_s": gb / decode_s,
+        "sample_wall_s": walls["orbax"], "pt_sample_wall_s": walls["pt"],
+        "phase_s": phase_s}}
+
 
 KERNELS = [
     # name, source, replaces (the TPU kernel's def line)
@@ -4401,8 +4649,9 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     distill phase's two `cli distill` runs (`distill_run`), its student's
     `cli sample` (`distill_sample`) and served batch (`distill_serve`),
     the ddp phase's `cli train --multihost` ranks (`ddp_run`, every
-    rank's own counts), the dp engine's batch (`dp_serve`), and one
-    micro_block run (there the
+    rank's own counts), the dp engine's batch (`dp_serve`), the orbax
+    phase's `cli sample` from the full-width orbax tree (`orbax_run`), and
+    one micro_block run (there the
     wrapper's calls, the ones captured in its CUDA graphs included; the
     graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
@@ -4507,11 +4756,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     brought = bringup_and_app_run(dev, card)
     torch.cuda.empty_cache()
+    orbax = orbax_run(dev, card, repo)
+    torch.cuda.empty_cache()
     micro = micro_block_run()
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain, "unipc_run": unipc, "micro_block": micro,
             "serve_run": served, "dp_serve": dp_served, **fitted, **laion,
-            **brought, **distilled}
+            **brought, **distilled, **orbax}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]

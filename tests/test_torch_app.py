@@ -204,3 +204,67 @@ def test_r12_jax_app_has_no_upscale_stage():
         server.shutdown()
         server.server_close()
     assert code == 500 and "no upscale model configured" in resp["error"]
+
+
+# ------------------------------------------- P10 and P11 (ROADMAP §3)
+
+class _Shell:
+    """A pickle whose loading would run a shell command."""
+
+    def __init__(self, marker):
+        self.marker = marker
+
+    def __reduce__(self):
+        return (os.system, (f"touch {self.marker}",))
+
+
+def test_p10_pose_ids_outside_the_directory_fall_back(pose_dir, tmp_path):
+    """`../evil` and an absolute path name a pickle outside the pose
+    directory: it is never read (its side effect never runs) and the pose
+    is the fallback an unknown id gets; an id in the directory still
+    reads its pickle."""
+    marker = tmp_path / "ran"
+    evil = os.path.join(os.path.dirname(pose_dir), "evil")
+    with open(evil + ".p", "wb") as f:
+        pickle.dump(_Shell(marker), f)
+    state = app.DemoState(build_latent_diffusion("tiny", device="cpu"),
+                          DebugConditioningEncoder(), pose_dir)
+    for pid in ("../evil", evil, "a/../../evil", "..", ""):
+        assert state.pose_file(pid) is None
+        smpl, _ = state.load_pose(pid)
+        rng = np.random.default_rng(app.fallback_pose_seed(pid))
+        np.testing.assert_array_equal(
+            smpl, rng.normal(size=(1, 85)).astype(np.float32) * 0.2)
+    assert not marker.exists()
+    assert state.pose_file("0") == type(state.pose_dir)(pose_dir) / "0.p"
+    with open(os.path.join(pose_dir, "0.p"), "rb") as f:
+        want = pickle.load(f)[0]
+    smpl, _ = state.load_pose("0")
+    np.testing.assert_array_equal(
+        smpl[0, :72], want["pred_body_pose"].reshape(-1).astype(np.float32))
+
+
+def test_p10_a_pickle_naming_os_system_is_refused(pose_dir, tmp_path):
+    marker = tmp_path / "ran"
+    with open(os.path.join(pose_dir, "shell.p"), "wb") as f:
+        pickle.dump(_Shell(marker), f)
+    try:
+        state = app.DemoState(build_latent_diffusion("tiny", device="cpu"),
+                              DebugConditioningEncoder(), pose_dir)
+        with pytest.raises(pickle.UnpicklingError, match="system"):
+            state.load_pose("shell")
+        assert not marker.exists()
+    finally:
+        os.remove(os.path.join(pose_dir, "shell.p"))
+
+
+def test_p11_too_many_frames_answer_400(served):
+    url, state = served
+    before = state.counter
+    code, resp = _post(url + "/api/generate",
+                       {"txt": "a woman", "steps": 2, "frames": 257})
+    assert code == 400 and "256" in resp["error"], resp
+    assert state.counter == before  # refused before the model ran
+    code, resp = _post(url + "/api/generate",
+                       {"txt": "a woman", "steps": 2, "frames": 1})
+    assert code == 200 and len(_images(resp)) == 1

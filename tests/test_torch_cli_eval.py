@@ -8,7 +8,8 @@
   and prints, JAX's `evaluate_dirs` on the port's dump giving the port's
   SSIM (2e-5 absolute: the smooth images' local variances cancel in
   float32 on both sides). `--fid-weights` takes a pt_inception .pth and
-  refuses a directory (JAX's orbax layout), naming ROADMAP item 11.
+  refuses a directory that is no orbax tree, naming its missing
+  `_METADATA` (JAX's orbax trees: tests/test_torch_orbax.py).
 - `eval --dir` reproduces metrics.json.
 - `train-vae`: `configs/autoencoder/kl_f8_deepfashion.yaml` with a tiny
   autoencoder (ch 32, ch_mult (1, 2)) over 32x32 images, batch 2, the GAN
@@ -152,7 +153,7 @@ def test_fid_weights_take_a_pth_and_refuse_a_directory(tmp_path):
     fn = cli._fid_fn({}, args, "cpu")
     assert isinstance(fn, InceptionFeatureFn) and fn.fid_name == "inception"
     args.fid_weights = str(tmp_path)
-    with pytest.raises(SystemExit, match="item 11"):
+    with pytest.raises(ValueError, match="_METADATA"):
         cli._fid_fn({}, args, "cpu")
     args.fid_weights = None
     assert cli._fid_fn({}, args, "cpu") is None

@@ -15,6 +15,7 @@ import io
 import os
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -344,3 +345,53 @@ def test_verify_report_equals_jax(tree, tmp_path):
     assert not ours["ok"]
     assert set(ours["missing"]) == {"image", "smpl_schema"}
     assert ours == theirs
+
+
+def test_smpl_pickles_load_through_the_restricted_unpickler(tree,
+                                                            tmp_path):
+    """The tree's SMPL pickles (`data/tree.py`) load through
+    `load_smpl_pickle` as `pickle.load` (JAX's reader) loads them; numpy's
+    protocol-2 pickles under either module name numpy has given
+    `_reconstruct` load too; a pickle naming any other global is refused
+    by name, in the dataset and in data-verify, without running it."""
+    import pickle
+
+    from upgpt_torch.data.smpl_pickle import load_smpl_pickle
+
+    pickles = sorted(p for d in ("smpl_256", "smpl")
+                     for p in (Path(tree["folder"]) / d).glob("*.p"))
+    assert pickles
+    for path in pickles:
+        with open(path, "rb") as f:
+            want = pickle.load(f)
+        got = load_smpl_pickle(path)
+        assert list(got[0]) == list(want[0])
+        for k in want[0]:
+            assert got[0][k].dtype == want[0][k].dtype
+            np.testing.assert_array_equal(got[0][k], want[0][k])
+    value = [{"pred_body_pose": np.arange(72, dtype=np.float64)}]
+    raw = pickle.dumps(value, protocol=2)
+    for module in (b"numpy._core.multiarray", b"numpy.core.multiarray"):
+        name = raw.replace(b"numpy._core.multiarray", module).replace(
+            b"numpy.core.multiarray", module)
+        (tmp_path / "p2.p").write_bytes(name)
+        np.testing.assert_array_equal(
+            load_smpl_pickle(tmp_path / "p2.p")[0]["pred_body_pose"],
+            value[0]["pred_body_pose"])
+
+    marker = tmp_path / "ran"
+
+    class Shell:
+        def __reduce__(self):
+            return (os.system, (f"touch {marker}",))
+
+    (tmp_path / "shell.p").write_bytes(pickle.dumps([Shell()]))
+    with pytest.raises(pickle.UnpicklingError, match="system"):
+        load_smpl_pickle(tmp_path / "shell.p")
+    from upgpt_torch.data.verify import _check_smpl
+
+    assert "system" in _check_smpl(tmp_path / "shell.p")
+    ds = _pair(tdf, tree)
+    with pytest.raises(pickle.UnpicklingError, match="system"):
+        ds._load_smpl(str(tmp_path / "shell"))
+    assert not marker.exists()

@@ -245,7 +245,7 @@ def test_port_never_imports_jax():
     code = (
         "import sys, pkgutil, importlib\n"
         "for name in ('jax', 'jaxlib', 'flax', 'upgpt_tpu', 'orbax', 'yaml',\n"
-        "             'PIL'):\n"
+        "             'PIL', 'tensorstore', 'zstandard'):\n"
         "    sys.modules[name] = None\n"
         "import upgpt_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -270,7 +270,9 @@ def test_port_never_imports_jax():
         "          'upgpt_torch.training.distill',\n"
         "          'upgpt_torch.data.synthetic',\n"
         "          'upgpt_torch.parallel.multihost',\n"
-        "          'upgpt_torch.parallel.mesh'):\n"
+        "          'upgpt_torch.parallel.mesh',\n"
+        "          'upgpt_torch.convert.ocdbt', 'upgpt_torch.convert.orbax',\n"
+        "          'upgpt_torch.native.zstd', 'upgpt_torch.data.smpl_pickle'):\n"
         "    assert m in mods, m\n"
         "print(len(mods))\n"
     )

@@ -25,14 +25,18 @@ model calls and the state they share. Divergences from the JAX app
 digest of the id, not by Python's per-process salted `hash` (R11), and the
 upscale stage is wired from `--upscale-base` / `--upscale-ckpt` at
 `UpscalePipeline`'s default 200 steps, where JAX never sets it (R12). The
-listen backlog is 128, as the serving endpoint's (R5).
+listen backlog is 128, as the serving endpoint's (R5). A pose id names a
+pickle only where it names a file directly in the pose directory (no
+separator, no `..`), and the pickle is read through the restricted SMPL
+unpickler (`data.smpl_pickle`); any other id falls back as an unknown one
+does. A request for more than 256 frames (the serving endpoint's bound)
+is answered 400 before anything is allocated (ROADMAP §3 P10, P11).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import pickle
 import sys
 import threading
 import zlib
@@ -43,6 +47,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from upgpt_torch.data.smpl_pickle import load_smpl_pickle
 from upgpt_torch.inference.http_serve import (
     _host, _png_b64, _Server, default_person_mask,
 )
@@ -88,6 +93,13 @@ function gen(){call('/api/generate',{txt:document.getElementById('txt').value,
 function up(){call('/api/upscale',{})}
 </script></body></html>"""
 
+MAX_FRAMES = 256  # as the serving endpoint bounds /v1/interpolate
+
+
+class BadRequest(ValueError):
+    """A request the app refuses with a 400."""
+
+
 def fallback_pose_seed(pose_id: str) -> int:
     """The fallback pose's seed: a stable digest of the id, the same in
     every process (JAX's `abs(hash(pose_id))` is salted per process,
@@ -119,15 +131,26 @@ class DemoState:
                 self.model, num_steps=steps, eta=1.0, sampler=sampler)
         return self.pipes[key]
 
+    def pose_file(self, pose_id: str) -> Optional[Path]:
+        """`<pose_id>.p` where the id names a file directly in the pose
+        directory, else None."""
+        if (self.pose_dir is None or not pose_id or ".." in pose_id
+                or "/" in pose_id or "\\" in pose_id or "\0" in pose_id):
+            return None
+        path = self.pose_dir / f"{pose_id}.p"
+        if (not path.is_file()
+                or path.resolve().parent != self.pose_dir.resolve()):
+            return None
+        return path
+
     def load_pose(self, pose_id: str) -> Tuple[np.ndarray, np.ndarray]:
         """(smpl (1, 85), person mask (h, w, 1)) of a pose id: the pose
         directory's SMPL pickle and mask, else a seeded fallback pose and
         the default mask."""
         h, w = self.model.config.latent_size
-        path = None if self.pose_dir is None else self.pose_dir / f"{pose_id}.p"
-        if path is not None and path.exists():
-            with open(path, "rb") as f:
-                p = pickle.load(f)
+        path = self.pose_file(pose_id)
+        if path is not None:
+            p = load_smpl_pickle(path)
             smpl = np.concatenate([
                 np.asarray(p[0][k], np.float32).reshape(1, -1)
                 for k in ("pred_body_pose", "pred_betas", "pred_camera")], 1)
@@ -150,6 +173,8 @@ class DemoState:
         style slots (zero, or pooled text where `style_texts` overrides a
         slot), and per frame the SMPL vector and the person mask."""
         frames = max(1, int(req.get("frames", 1)))
+        if frames > MAX_FRAMES:
+            raise BadRequest(f"frames must be at most {MAX_FRAMES}")
         text_emb = _host(self.encoder.text_hidden([req.get("txt", "")]))
         style_emb = np.zeros((1, len(STYLE_NAMES), text_emb.shape[-1]),
                              np.float32)
@@ -241,6 +266,8 @@ def make_handler(state: DemoState, mode_label: str):
                                404)
                     return
                 self._json({"images": [_png_b64(i) for i in imgs]})
+            except BadRequest as e:
+                self._json({"error": f"{type(e).__name__}: {e}"}, 400)
             except Exception as e:  # noqa: BLE001 — surfaces errors to the UI
                 self._json({"error": f"{type(e).__name__}: {e}"}, 500)
 
@@ -292,7 +319,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--base", nargs="*", default=[])
     p.add_argument("overrides", nargs="*", help="key=value dotlist")
     p.add_argument("--ckpt", default=None,
-                   help="the port's checkpoint (either layout)")
+                   help="the port's checkpoint (either layout) or a "
+                        "JAX orbax directory")
     p.add_argument("--pose-dir", default=None)
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--host", default="0.0.0.0")

@@ -47,8 +47,12 @@ split (else validation), dumps the paired groups and scores them (SSIM,
 MS-SSIM, the FID with `--fid-weights`, a pt_inception .pth); `eval` scores
 a dump again. `train-vae` trains the first stage with the PatchGAN loss
 and writes `<logdir>/last` in the port's layout. `clip.*` in the config
-names the CLIP towers' weights (torch state dicts) and the BPE merges; the
-debug encoder (`--debug-encoder`) stands in without them. `convert` reads
+names the CLIP towers' weights (torch state dicts, or the JAX CLI's orbax
+trees) and the BPE merges; the debug encoder (`--debug-encoder`) stands in
+without them. Every `--ckpt`, `--upscale-ckpt` and `--teacher-ckpt` takes
+a `torch.save` file or a directory the JAX package's orbax checkpointer
+wrote (`cli convert`'s, `cli distill`'s or the trainer's), read without
+JAX (`convert.orbax`); so does `--fid-weights`. `convert` reads
 a released Lightning checkpoint (`convert.lightning`) into the serving
 layout that `sample`, `test`, `serve` and the demo app read; `bringup` is
 the weight-drop runbook (`upgpt_torch.bringup`), exiting 3 when its report
@@ -67,8 +71,8 @@ rows; with no such environment it trains as one process. Each rank
 prints a summary line on stderr at the end (`multihost summary {...}`).
 `serve --dp N` keeps a replica of the pipeline on each of cuda:0..N-1 and
 splits every batch over them; its kernels stay on (JAX turns its Pallas
-kernels off under --dp, ROADMAP §3 P9). Orbax weight directories and
-`--tp` are not ported yet; each names the ROADMAP item it waits on.
+kernels off under --dp, ROADMAP §3 P9). `--tp` is not ported yet; it
+names the ROADMAP item it waits on.
 """
 
 from __future__ import annotations
@@ -89,7 +93,8 @@ from upgpt_torch.utils.diagnostics import cast_floating
 def _build_cond_encoder(cfg, model, allow_debug=False):
     """The CLIP encoder where the config names its weights
     (`clip.text_params`, `clip.vision_params`: `torch.save`d state dicts in
-    HF, openai or the port's layout) and the BPE merges (`clip.bpe_path`),
+    HF, openai or the port's layout, or the JAX CLI's orbax trees) and the
+    BPE merges (`clip.bpe_path`),
     on the model's device; else the debug encoder where `allow_debug`.
 
     The towers' activation follows the variant: exact GELU for a model
@@ -336,21 +341,19 @@ def cmd_sample(cfg, args):
 def _fid_fn(cfg, args, device):
     """The protocol FID's extractor from --fid-weights (else
     eval.fid_weights): pytorch_fid's InceptionV3 pool3 from a pt_inception
-    .pth, on `device` (reference scripts/eval_metrics.py:100-112)."""
+    .pth, or from the JAX CLI's converted orbax tree
+    (`upgpt_tpu/cli.py:388-406`), on `device` (reference
+    scripts/eval_metrics.py:100-112)."""
     from upgpt_torch.eval.inception import (
-        InceptionFeatureFn, load_pt_inception,
+        InceptionFeatureFn, load_jax_inception, load_pt_inception,
     )
 
     path = getattr(args, "fid_weights", None) or (
         cfg.get("eval") or {}).get("fid_weights")
     if not path:
         return None
-    if Path(path).is_dir():
-        raise SystemExit(
-            f"--fid-weights {path}: a directory (the JAX CLI's converted "
-            f"orbax tree); the port reads the pt_inception .pth, and orbax "
-            f"trees wait on a reader of their own (ROADMAP §1 item 11)")
-    return InceptionFeatureFn(load_pt_inception(path), device)
+    load = load_jax_inception if Path(path).is_dir() else load_pt_inception
+    return InceptionFeatureFn(load(path), device)
 
 
 def _crop_hw(cfg) -> tuple:
@@ -882,7 +885,7 @@ def parser() -> argparse.ArgumentParser:
     sp = _common(sub, "sample")
     sp.add_argument("--ckpt", required=True,
                     help="a checkpoint of upgpt_torch.checkpoint, either "
-                         "layout")
+                         "layout, or a JAX orbax directory")
     sp.add_argument("--out", default="results")
     sp.add_argument("--steps", type=int, default=None)
     sp.add_argument("--batch", type=int, default=8)
@@ -897,7 +900,7 @@ def parser() -> argparse.ArgumentParser:
     sp = _common(sub, "test")
     sp.add_argument("--ckpt", required=True,
                     help="a checkpoint of upgpt_torch.checkpoint, either "
-                         "layout")
+                         "layout, or a JAX orbax directory")
     sp.add_argument("--out", default="results")
     sp.add_argument("--steps", type=int, default=None)
     sp.add_argument("--batch", type=int, default=8)
@@ -912,13 +915,15 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel sampling (not ported: > 1 raises)")
     sp.add_argument("--fid-weights", default=None,
-                    help="pt_inception .pth for the protocol's FID")
+                    help="pt_inception .pth (or the JAX CLI's orbax "
+                         "tree) for the protocol's FID")
 
     sp = _common(sub, "eval")
     sp.add_argument("--dir", required=True,
                     help="a `test` dump (samples/ and gt/)")
     sp.add_argument("--fid-weights", default=None,
-                    help="pt_inception .pth for the protocol's FID")
+                    help="pt_inception .pth (or the JAX CLI's orbax "
+                         "tree) for the protocol's FID")
     sp.add_argument("--device", default="cuda",
                     help="where the metrics run (default: the card)")
 
@@ -937,7 +942,8 @@ def parser() -> argparse.ArgumentParser:
 
     sp = _common(sub, "serve")
     sp.add_argument("--ckpt", required=True,
-                    help="the port's checkpoint (upgpt_torch.checkpoint)")
+                    help="the port's checkpoint (upgpt_torch.checkpoint) "
+                         "or a JAX orbax directory")
     sp.add_argument("--port", type=int, default=8000)
     sp.add_argument("--host", default="0.0.0.0")
     sp.add_argument("--batch", type=int, default=32)
@@ -965,7 +971,8 @@ def parser() -> argparse.ArgumentParser:
 
     sp = _common(sub, "distill")
     sp.add_argument("--teacher-ckpt", required=True,
-                    help="the trained teacher (either checkpoint layout; "
+                    help="the trained teacher (either checkpoint layout "
+                         "or a JAX orbax directory; "
                          "EMA first), or a student with its sidecar to "
                          "continue its ladder")
     sp.add_argument("--out", required=True,

@@ -26,9 +26,12 @@ The CLIP towers (`models/clip.py`) and the text-style fusion
 same way.
 
 The bridge is strict: a key the module lacks, a module key the tree lacks,
-or a shape that disagrees raises ValueError. It takes numpy arrays and
-imports no JAX; `flatten_tree` walks any nested mapping (a flax params
-dict included) with plain Python.
+or a shape that disagrees raises ValueError. It takes numpy arrays (and
+the bfloat16 torch tensors of `convert.orbax.restore`, widened to float32)
+and imports no JAX; `flatten_tree` walks any nested mapping (a flax params
+dict included) with plain Python. `jax_state_dict` maps a tree by names
+alone, for a caller whose strict `load_state_dict` checks it, or which
+reads a module's geometry from the shapes (the CLIP towers).
 """
 
 from __future__ import annotations
@@ -45,6 +48,12 @@ _BARE = ("position_embedding", "class_embedding", "text_projection",
          "visual_projection", "bn_scale", "bn_bias")
 
 
+def _numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):  # bfloat16, which numpy lacks
+        return value.float().numpy()
+    return np.asarray(value)
+
+
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     """Nested mapping -> {"a/b/c": numpy array}."""
     out: Dict[str, np.ndarray] = {}
@@ -53,7 +62,7 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         if isinstance(value, Mapping):
             out.update(flatten_tree(value, path))
         else:
-            out[path] = np.asarray(value)
+            out[path] = _numpy(value)
     return out
 
 
@@ -75,6 +84,15 @@ def torch_array(jax_key: str, value: np.ndarray) -> np.ndarray:
             return np.ascontiguousarray(value.T)
         raise ValueError(f"{jax_key}: kernel of rank {value.ndim}")
     return value
+
+
+def jax_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A nested JAX tree -> {port key: tensor} by names alone, each leaf
+    re-laid as `torch_array` does, in its own dtype (bfloat16 widened to
+    float32)."""
+    return {torch_key(jk): torch.from_numpy(np.require(
+        torch_array(jk, value), requirements="C"))
+        for jk, value in flatten_tree(tree).items()}
 
 
 def state_dict_from_jax(flat: Mapping[str, np.ndarray],

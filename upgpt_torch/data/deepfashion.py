@@ -23,13 +23,13 @@ from __future__ import annotations
 
 import json
 import os
-import pickle
 import random as _random
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 from upgpt_torch.data.segm import DeepfashionMMSegmenter
+from upgpt_torch.data.smpl_pickle import load_smpl_pickle
 from upgpt_torch.data.transforms import (
     center_crop,
     clip_normalize_image,
@@ -203,8 +203,7 @@ class DeepFashionPair:
         return np.stack(out)
 
     def _load_smpl(self, pose_path: str):
-        with open(pose_path + ".p", "rb") as fh:
-            params = pickle.load(fh)
+        params = load_smpl_pickle(pose_path + ".p")
         vec = np.concatenate(
             (
                 np.asarray(params[0]["pred_body_pose"], np.float32).reshape(1, -1),

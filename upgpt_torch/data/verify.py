@@ -23,10 +23,11 @@ Checked per pair row (from,to,multimodal,segm — pairs-test-all.csv:1):
 from __future__ import annotations
 
 import json
-import pickle
 from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
+
+from upgpt_torch.data.smpl_pickle import load_smpl_pickle
 
 PAIR_COLUMNS = {"from", "to"}          # multimodal/segm are optional filters
 MAP_COLUMNS = {"image", "text", "pose", "styles"}
@@ -171,8 +172,7 @@ def _check_smpl(path: Path) -> Optional[str]:
     import numpy as np
 
     try:
-        with open(path, "rb") as fh:
-            params = pickle.load(fh)
+        params = load_smpl_pickle(path)
         p0 = params[0]
         total = 0
         for f in SMPL_FIELDS:

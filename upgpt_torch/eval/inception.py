@@ -268,6 +268,17 @@ def load_pt_inception(path: str) -> Dict[str, torch.Tensor]:
     return convert_inception_state_dict(sd.get("state_dict", sd))
 
 
+def load_jax_inception(path) -> Dict[str, torch.Tensor]:
+    """The JAX package's converted Inception tree (an orbax directory,
+    `upgpt_tpu/cli.py:398-404`) -> `InceptionV3Features`'s state dict,
+    strictly."""
+    from upgpt_torch.convert.from_jax import flatten_tree, state_dict_from_jax
+    from upgpt_torch.convert.orbax import restore
+
+    return state_dict_from_jax(flatten_tree(restore(path)),
+                               InceptionV3Features())
+
+
 class InceptionFeatureFn:
     """`(N, H, W, C)` in [-1, 1] -> (N, 2048) float32 pool3 features on
     `device`, for `harness.evaluate_dirs` (its images arrive as x*2-1 of

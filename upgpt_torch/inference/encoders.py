@@ -66,13 +66,19 @@ class CLIPConditioningEncoder:
                    ) -> "CLIPConditioningEncoder":
         """Towers from `torch.save`d state dicts (HF, openai or the port's
         layout, told apart by their keys; one openai CLIP file may serve
-        both) and the BPE merges file."""
+        both) or from the JAX CLI's orbax trees of either tower
+        (`upgpt_tpu/cli.py:30-40`), and the BPE merges file."""
         from upgpt_torch.convert.clip_weights import (
             text_tower_from_state_dict, vision_tower_from_state_dict,
         )
+        from upgpt_torch.convert.from_jax import jax_state_dict
+        from upgpt_torch.convert.orbax import is_orbax_dir, restore
 
-        load = lambda p: torch.load(p, map_location="cpu",  # noqa: E731
-                                    weights_only=True)
+        def load(path):
+            if is_orbax_dir(path):
+                return jax_state_dict(restore(path))
+            return torch.load(path, map_location="cpu", weights_only=True)
+
         return cls(text_tower_from_state_dict(load(text_params), quick_gelu,
                                               device),
                    vision_tower_from_state_dict(load(vision_params),
