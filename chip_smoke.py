@@ -1,5 +1,6 @@
 """Drive the PyTorch port's sampling, training, evaluation, 256->512 chain,
-serving, weight-drop runbook and demo app paths on one NVIDIA GPU.
+serving, weight-drop runbook, demo app and tensor-parallel paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,9 @@ CUDA toolkit. It
    batch 4, mm_512's served batch of 8, the runbook's validators at batch
    1 over a 77-token context projected in-kernel, its sampler check and
    the app at batch 2, the app's upscale stage at batch 2, a
-   data-parallel training rank's 6 rows and a dp serving replica's 4; the
+   data-parallel training rank's 6 rows, a dp serving replica's 4 and the
+   tp phase's shards (a data group's 4 rows and 4 heads, mm_512's tp-2
+   shards at batch 2, the tp training check's 2 rows); the
    half-step kernel and the two
    GroupNorm kernels after step 5, at every shape the train step and the
    chain run launched them at, with the launches their counters recorded
@@ -30,8 +33,8 @@ CUDA toolkit. It
    re-drawn from a seeded generator (std 1/sqrt(fan_in), nothing left at
    zero), checks the kernel path against the plain path end to end (one
    U-Net eval, and a 4-step eta-0 sample plus decode at batch 2), then runs
-   DDIM-50 with eta 1 at batch 8 to uint8 images: one warm-up and two
-   timed runs, counting kernel launches in each;
+   DDIM-50 with eta 1 at batch 8 to uint8 images: one warm-up and one
+   timed run, counting its kernel launches;
 4. training: builds interp_256 with float32 master parameters under bf16
    compute and the training kernels on (flash attention, fused transformer,
    fused GroupNorm), checks one AdamW step of the kernel path against the
@@ -121,7 +124,7 @@ CUDA toolkit. It
    the plain path for UniPC-8 and DPM++(2M)-8 on the karras grid at batch
    2 (latents, and UniPC's decoded image), then runs UniPC-8-karras, eta
    0, at batch 64 to uint8 (64, 256, 192, 3), `bench.py`'s second row: one
-   warm-up and two timed runs, counting launches (K1 ten a U-Net eval,
+   warm-up and one timed run, counting launches (K1 ten a U-Net eval,
    one flash forward for the decode, nothing else);
 7. micro_block: the self-attention leg's two kernels (full-width K8,
    per-head K9) against their twins at (32, 768, 224, 8 heads) and at a
@@ -138,7 +141,7 @@ CUDA toolkit. It
    latents and their uint8 image), writes its checkpoint and builds the
    serving engine through `upgpt_torch.cli` (UniPC-8-karras, eta 0, batch
    8, the debug encoder), times the raw pipeline at batch 8 to uint8 on
-   the host (one warm-up, two timed runs, launches counted per batch),
+   the host (one warm-up, one timed run, launches counted per batch),
    runs one batch's dispatch under `torch.cuda.set_sync_debug_mode
    ("error")`, then serves 12 concurrent /v1/generate requests, a 4-frame
    /v1/interpolate, /v1/stats and /healthz over HTTP on 127.0.0.1: every
@@ -183,7 +186,23 @@ CUDA toolkit. It
    JPEGs byte for byte equal, the orbax run's launches against the
    structure; and a copy with one byte of its root B-tree node flipped
    refused with the CRC-32C error;
-12. prints a JSON line of per-kernel results, the card's name and power
+12. tp: tensor parallelism (`upgpt_torch.parallel.tp`) on shards of this
+   one card: interp_256 at full width in bf16 with re-drawn weights on a
+   2 x 2 grid of [card] * 4, held to the unsharded kernel path on the same
+   weights and draws (one U-Net eval and a 4-step eta-0 DDIM sample plus
+   decode at batch 4), then DDIM-50 eta 1 at batch 8 to uint8 (a DDIM-4
+   warm-up at that batch and one timed run, the unsharded pipeline timed
+   before and after it:
+   the cost of the split on one card, not a speed across cards), its
+   launches (K1 none; K3 in every shard's ds1 self-attention, K2 in each
+   group's decode) and collectives (four all-reduces and one all-gather a
+   block on every shard, and their bytes) against `expected_tp_counts`;
+   mm_512 at full width on tp 2 against its unsharded path (a 4-step
+   eta-0 sample at batch 2); one float32-master training loss and
+   backward on tp 2 at batch 2 against the unsharded step's (the loss,
+   the re-assembled gradient and its worst leaf; K4 at the shards'
+   heads), its launches against the structure;
+13. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
 On every path bf16 attention must run the tensor-core flash kernels: the
@@ -244,7 +263,7 @@ TRAIN_UPDATE_REL_L2 = 0.5
 # bound has a margin of 3x or more.
 CHAIN_EPS_REL_L2 = 5e-2
 CHAIN_IMAGE_REL_L2 = 5e-2
-BATCH, STEPS, TIMED_RUNS = 8, 50, 2
+BATCH, STEPS, TIMED_RUNS = 8, 50, 1
 # bench.py's second row: UniPC-8 on the karras grid, eta 0, batch 64
 UNIPC_BATCH, UNIPC_STEPS = 64, 8
 # the self-attention leg at micro_block's geometry, and a ragged T
@@ -541,8 +560,11 @@ def kernel_checks(dev) -> dict:
         # the runbook's kl-f8 AttnBlocks at batch 1 (validators) and 2
         # (sampler check, app), the app's upscale ds2 at batch 2, a
         # data-parallel training rank's encoder AttnBlock and ds1
-        # recompute at batch 6, and a dp serving replica's 512px decode
-        # and mm_512 ds1 at batch 4
+        # recompute at batch 6, a dp serving replica's 512px decode and
+        # mm_512 ds1 at batch 4, and the tp phase's shards: a data group's
+        # decode and its shards' ds1 self-attention (4 rows, 4 heads) on
+        # the interp_256 grid, mm_512's 512px decode and its shards' ds1
+        # and ds2 at batch 2, and the training check's ds1 at batch 2
         for shape, path in [((BATCH, 1, 768, 512), "sampling"),
                             ((TRAIN_BATCH, 1, 768, 512), "training"),
                             ((TRAIN_BATCH, 8, 768, 28), "training"),
@@ -557,7 +579,13 @@ def kernel_checks(dev) -> dict:
                             ((SERVE_BATCH // DP_REPLICAS, 1, 3072, 512),
                              "dp_serve"),
                             ((SERVE_BATCH // DP_REPLICAS, 8, 3072, 28),
-                             "dp_serve")]:
+                             "dp_serve"),
+                            ((TP_ROWS, 1, 768, 512), "tp_run"),
+                            ((TP_ROWS, 8 // TP, 768, 28), "tp_run"),
+                            ((2, 1, 3072, 512), "tp_mm512"),
+                            ((2, 8 // TP, 3072, 28), "tp_mm512"),
+                            ((2, 8 // TP, 768, 56), "tp_mm512"),
+                            ((2, 8 // TP, 768, 28), "tp_train")]:
             q, k, v = (randn(shape).bfloat16() for _ in range(3))
             bh, t, d = shape[0] * shape[1], shape[2], shape[3]
             cases["flash_attention"].append(_compare(
@@ -571,7 +599,8 @@ def kernel_checks(dev) -> dict:
 
 
 def backward_checks(cases, randn) -> None:
-    """K4 at the ds1 recompute of the training path, and at the upscale
+    """K4 at the ds1 recompute of the training path, at the tp training
+    check's shards (2 rows, 4 heads), and at the upscale
     net's ds2 (4, 8, 3072, 64), which JAX's backward condition admits in
     bf16 and no path of the port trains yet ("none"). No one library call
     computes a pass alone: the `scaled_dot_product_attention` backward (dq,
@@ -581,6 +610,7 @@ def backward_checks(cases, randn) -> None:
 
     for shape, path in [((TRAIN_BATCH, 8, 768, 28), "training"),
                         ((DDP_RANK_BATCH, 8, 768, 28), "ddp"),
+                        ((2, 8 // TP, 768, 28), "tp_train"),
                         ((CHAIN_BATCH, 8, 3072, 64), "none")]:
         bh, t, d = shape[0] * shape[1], shape[2], shape[3]
         q, k, v, do = (randn(shape).bfloat16() for _ in range(4))
@@ -3762,7 +3792,7 @@ def serve_run(dev, card: str) -> dict:
                  "smpl": rng.normal(size=(1, 85)).tolist()}
                 for i in range(SERVE_REQUESTS)]
 
-    # --- the raw pipeline at the same batch: warm-up + 3 timed runs ---
+    # --- the raw pipeline at the same batch: warm-up + TIMED_RUNS ---
     batch = engine._pack([([builder.build(r)], None, None)
                           for r in requests[:SERVE_BATCH]])
     times, counts = [], []
@@ -4616,6 +4646,334 @@ def orbax_run(dev, card: str, repo: str) -> dict:
         "phase_s": phase_s}}
 
 
+# the tp phase: interp_256 on a grid of TP_DEVICES entries of this one card
+# with TP shards a data group (two groups of two), mm_512 on TP shards (one
+# group), and one training loss of interp_256 on TP shards. Shards on one
+# card exercise every split, collective and launch of the sharded path;
+# they say nothing of a speed across cards.
+TP, TP_DEVICES, TP_BATCH, TP_CHECK_BATCH = 2, 4, 8, 4
+TP_ROWS = TP_BATCH // (TP_DEVICES // TP)  # a data group's rows
+# The grid against the unsharded kernel path on the same weights and draws
+# (relative L2): one U-Net eval and a 4-step eta-0 DDIM sample plus decode
+# at batch 4 (interp_256), a 4-step eta-0 sample at batch 2 (mm_512). The
+# unsharded path runs K1 for the ds1/ds2 blocks, which keeps float32 inside
+# each sub-block, where the shards round their products to bf16 and sum
+# them in float32: the same kind of difference as the sampling phase's
+# kernel against plain. Measured on an H100 (700 W): 1.780e-2 (eps),
+# 5.374e-3 / 5.543e-3 (interp_256 / mm_512 latents) and 1.074e-2 /
+# 1.118e-2 (images), so each bound has a margin of 3x or more.
+TP_EPS_REL_L2 = 6e-2
+TP_LATENT_REL_L2 = 2e-2
+TP_IMAGE_REL_L2 = 4e-2
+# One float32-master training loss and backward at batch 2 on tp shards
+# against the unsharded kernel path's: |loss difference| / loss, the
+# relative L2 of the whole re-assembled gradient and the largest of any
+# one leaf's. The two round to bf16 at other places (K1 against the shard
+# form), and the backward carries that through every leaf; a leaf whose
+# gradient is small next to that noise moves most. Measured on an H100
+# (700 W): 1.170e-4 (loss), 5.736e-3 (gradient) and 3.368e-2 (the worst of
+# 688 leaves, mid_attn's attn1 to_q), so each bound has a margin of 3x or
+# more.
+TP_TRAIN_LOSS_REL = 5e-4
+TP_TRAIN_GRAD_REL_L2 = 2e-2
+TP_TRAIN_LEAF_REL_L2 = 0.12
+
+
+def expected_tp_counts(model, tp: int, groups: int, steps: int,
+                       b: int) -> dict:
+    """Kernel launches and collectives of one sampling run of `model`
+    sharded `tp` ways over `groups` data groups (`steps` U-Net evals, one
+    decode a group) at batch `b`, from the structure: K1 never (the shard
+    form runs in its place); per eval, shard and group the flash forward
+    in each SpatialTransformer whose shard shape (b / groups rows, heads /
+    tp heads) its gate admits, four all-reduces and one all-gather; each
+    group's decode its mid AttnBlock's flash forward; sampling keeps fused
+    GroupNorm off, so nothing else. `bytes` counts every partial (bf16,
+    (rows, T, C)) and every proj_in share (rows, T, C / tp) sent to each
+    of the other tp - 1 shards."""
+    from upgpt_torch.models.unet import cross_attention_layers
+    from upgpt_torch.ops.flash_attention import flash_attention_qualifies
+
+    cfg = model.config
+    ucfg, vcfg = cfg.unet, cfg.vae
+    h, w = cfg.latent_size
+    rows = b // groups
+    dtype = model.unet.compute_dtype
+    size = torch.empty((), dtype=dtype).element_size()
+    flash = layers = nbytes = 0
+    for name, ch in cross_attention_layers(ucfg):
+        s = 2 ** _level(ucfg, name)
+        t = (h // s) * (w // s)
+        layers += 1
+        flash += ucfg.use_flash_attention and flash_attention_qualifies(
+            rows, ucfg.num_heads // tp, t, t, ch // ucfg.num_heads, dtype)
+        part = rows * t * ch * size
+        nbytes += (tp - 1) * tp * (4 * part + part // tp)
+    evals = tp * groups * steps
+    c_mid = vcfg.ch * vcfg.ch_mult[-1]
+    decode = int(vcfg.use_flash_attention and flash_attention_qualifies(
+        rows, 1, h * w, h * w, c_mid,
+        model.vae.decoder.conv_in.weight.dtype))
+    counts = {k: 0 for k in _counters()}
+    counts.update({k: 0 for k, _, _ in _routes()})
+    counts["flash_attention"] = flash * evals + decode * groups
+    return counts, {"all_reduces": 4 * layers * evals,
+                    "all_gathers": layers * evals,
+                    "bytes": nbytes * groups * steps}
+
+
+def _tp_against_unsharded(model, tpm, dev, b: int, seed: int, label: str,
+                          eval_too: bool) -> dict:
+    """The tp model against `model` (the unsharded kernel path) on the
+    same weights, batch and draws: one U-Net eval (`eval_too`), the
+    latents of a 4-step eta-0 DDIM sample and their decoded image; each
+    held to its TP_* gate. Returns the relative L2s, the sample's launches
+    and collectives."""
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+
+    h, w = model.config.latent_size
+    small = _batch(b, h, w, dev, seed=seed)
+    x_t = torch.randn(b, h, w, model.config.latent_channels,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          seed + 1), device=dev)
+    t = torch.linspace(981, 21, b, device=dev).long()
+    out = {}
+    with torch.inference_mode():
+        for tag, m in (("tp", tpm), ("unsharded", model)):
+            if eval_too:
+                ctx = m.build_context(small["text_emb"], small["style_emb"],
+                                      small["smpl"])
+                out[tag, "eps"] = m.apply_model(x_t, t, {
+                    "c_crossattn": ctx, "c_concat": small["person_mask"],
+                    "cross_kv": m.cross_kv(ctx)})
+            tpm.grid.reset_counts()
+            _reset_counts()
+            out[tag, "latents"] = GenerationPipeline(
+                m, num_steps=4, eta=0.0, decode=False).generate(small,
+                                                                x_T=x_t)
+            out[tag, "image"] = m.decode_first_stage(out[tag, "latents"])
+            if tag == "tp":
+                torch.cuda.synchronize()
+                counts, coll = _read_counts(), _collectives(tpm)
+    gates = {"eps": TP_EPS_REL_L2, "latents": TP_LATENT_REL_L2,
+             "image": TP_IMAGE_REL_L2}
+    e2e = {}
+    for what in ("eps", "latents", "image") if eval_too else ("latents",
+                                                              "image"):
+        for tag in ("tp", "unsharded"):
+            if not torch.isfinite(out[tag, what]).all():
+                raise RuntimeError(f"{label} {tag}: non-finite {what}")
+        e2e[f"{what}_rel_l2"] = _rel_l2(out["tp", what],
+                                        out["unsharded", what])
+    print(f"{label} against the unsharded kernel path (batch {b}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in e2e.items()), flush=True)
+    for what, rel in e2e.items():
+        if rel > gates[what[:-len("_rel_l2")]]:
+            raise RuntimeError(f"{label} disagrees with the unsharded "
+                               f"path: {e2e}")
+    return {**e2e, "launches": counts, "collectives": coll}
+
+
+def _collectives(tpm) -> dict:
+    g = tpm.grid
+    return {"all_reduces": g.all_reduces, "all_gathers": g.all_gathers,
+            "bytes": g.bytes}
+
+
+def _tp_train_check(dev) -> dict:
+    """One float32-master training loss and backward at batch 2 on TP
+    shards of one card against the unsharded kernel path's on the same
+    batch and draws; the shards' launches (K4 at shard shapes) against
+    the structure."""
+    from upgpt_torch.models.unet import cross_attention_layers
+    from upgpt_torch.ops.flash_attention import flash_attention_qualifies
+    from upgpt_torch.parallel.tp import TPLatentDiffusion
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    model = build_latent_diffusion(
+        "interp_256", dtype="bfloat16", param_dtype="float32", device=dev,
+        use_flash_attention=True, use_fused_transformer=True,
+        use_fused_groupnorm=True)
+    _redraw(model, seed=91, dev=dev)
+    tpm = TPLatentDiffusion(model, [dev] * TP, TP)
+    batch = _train_batch(model, 2, dev, seed=92)
+    draws = model.training_draws(2, torch.Generator(device=dev).manual_seed(
+        93))
+    loss, _ = model.training_loss(batch, draws=draws)
+    loss.backward()
+    want = {n: p.grad.float() for n, p in model.named_parameters()
+            if p.grad is not None}
+    _reset_counts()
+    loss_tp, _ = tpm.training_loss(batch, draws=draws)
+    loss_tp.backward()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    got = tpm.gradients()
+    if set(got) != set(want):
+        raise RuntimeError(f"tp gradients for {sorted(set(got) ^ set(want))}"
+                           f" differ in presence")
+    names = sorted(want)
+    leaf = {n: _rel_l2(got[n], want[n]) for n in names}
+    worst = max(leaf, key=leaf.get)
+    e2e = {"train_loss_rel": abs(loss_tp.item() - loss.item())
+           / abs(loss.item()),
+           "train_grad_rel_l2": _rel_l2_lists([got[n] for n in names],
+                                              [want[n] for n in names]),
+           "train_worst_leaf_rel_l2": leaf[worst], "train_worst_leaf": worst}
+    # the unsharded step's launches at batch 2 (the ResBlocks run once, on
+    # the group's first device), less K1, with each shard's flash forward
+    # and backward at its heads
+    ucfg = model.unet.config
+    h, w = model.config.latent_size
+    base = expected_train_counts(model, 2)
+    shard_flash = TP * sum(
+        flash_attention_qualifies(2, ucfg.num_heads // TP, t, t,
+                                  ch // ucfg.num_heads, ucfg.dtype)
+        for name, ch in cross_attention_layers(ucfg)
+        for t in [(h >> _level(ucfg, name)) * (w >> _level(ucfg, name))])
+    expected = {
+        **base, "fused_transformer_block": 0,
+        "flash_attention": (base["flash_attention"]
+                            - base["flash_backward_dq"] + shard_flash),
+        "flash_backward_dq": shard_flash, "flash_backward_dkv": shard_flash}
+    print(f"tp {TP} training loss and backward (interp_256, batch 2, "
+          f"float32 masters, bf16 compute) against the unsharded kernel "
+          f"path: loss {loss_tp.item():.6f} / {loss.item():.6f} (rel "
+          f"{e2e['train_loss_rel']:.3e}), gradient rel L2 "
+          f"{e2e['train_grad_rel_l2']:.3e} over {len(names)} leaves, worst "
+          f"leaf {worst} {leaf[worst]:.3e}; launches {counts}", flush=True)
+    if counts != expected:
+        raise RuntimeError(f"tp training launches {counts}, expected "
+                           f"{expected}")
+    if (e2e["train_loss_rel"] > TP_TRAIN_LOSS_REL
+            or e2e["train_grad_rel_l2"] > TP_TRAIN_GRAD_REL_L2
+            or leaf[worst] > TP_TRAIN_LEAF_REL_L2):
+        raise RuntimeError(f"tp training disagrees with the unsharded "
+                           f"path: {e2e}")
+    return {"launches": counts, **e2e}
+
+
+def tp_run(dev, card: str) -> dict:
+    """Tensor parallelism on the one card (`upgpt_torch.parallel.tp`):
+    interp_256 at full width in bf16 (re-drawn weights) on a 2 x 2 grid of
+    [card] * 4 against the unsharded kernel path, then DDIM-50 eta 1 at
+    batch 8 to uint8 (one warm-up, one timed run, the unsharded pipeline
+    timed beside it in turns) with its launches and collectives against
+    `expected_tp_counts`; mm_512 at full width on tp 2 against its
+    unsharded path; one training loss and backward on tp 2. Returns
+    {"tp_run", "tp_mm512"} for the kernel line."""
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+    from upgpt_torch.parallel.tp import TPLatentDiffusion
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    from upgpt_torch.cli import _tp_shard
+
+    t_phase = time.perf_counter()
+    groups = TP_DEVICES // TP
+    model = build_latent_diffusion("interp_256", dtype="bfloat16",
+                                   device=dev)
+    _redraw(model, seed=81, dev=dev)
+    # `cli sample / test --tp 2` grids every card of the process, as JAX's
+    # mesh does: on one card it exits with JAX's message
+    try:
+        _tp_shard(model, TP, TP_BATCH)
+    except SystemExit as err:
+        refused = str(err)
+    else:
+        raise RuntimeError(f"--tp {TP} was sharded over one card")
+    if f"--tp {TP} does not divide 1 devices" not in refused:
+        raise RuntimeError(f"--tp {TP} on one card: {refused}")
+    tpm = TPLatentDiffusion(model, [dev] * TP_DEVICES, TP)
+    check = _tp_against_unsharded(model, tpm, dev, TP_CHECK_BATCH, 82,
+                                  f"interp_256 on a {groups} x {TP} grid",
+                                  eval_too=True)
+    want_counts, want_coll = expected_tp_counts(model, TP, groups, 4,
+                                                TP_CHECK_BATCH)
+    if check["launches"] != want_counts or check["collectives"] != want_coll:
+        raise RuntimeError(f"tp check launches {check['launches']} "
+                           f"{check['collectives']}, expected {want_counts} "
+                           f"{want_coll}")
+
+    h, w = model.config.latent_size
+    batch = _batch(TP_BATCH, h, w, dev, seed=84)
+    pipes = {tag: GenerationPipeline(m, num_steps=STEPS, eta=1.0,
+                                     output_uint8=True)
+             for tag, m in (("tp", tpm), ("unsharded", model))}
+    # the warm-up: every shape of the timed run, at 4 of its 50 steps
+    t0 = time.perf_counter()
+    GenerationPipeline(tpm, num_steps=4, eta=1.0, output_uint8=True
+                       ).generate(batch, torch.Generator(device=dev
+                                                         ).manual_seed(85))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    times, outs = {}, {}
+    for tag in ("unsharded", "tp", "unsharded"):
+        gen = torch.Generator(device=dev).manual_seed(86)
+        torch.cuda.synchronize()
+        _reset_counts()
+        tpm.grid.reset_counts()
+        t0 = time.perf_counter()
+        outs[tag] = pipes[tag].generate(batch, gen)
+        torch.cuda.synchronize()
+        times.setdefault(tag, []).append(time.perf_counter() - t0)
+        if tag == "tp":
+            counts, coll = _read_counts(), _collectives(tpm)
+    out = outs["tp"]
+    if (tuple(out.shape) != (TP_BATCH,) + _image_shape(model)
+            or out.dtype != torch.uint8):
+        raise RuntimeError(f"tp output {tuple(out.shape)} {out.dtype}")
+    if out.min().item() == out.max().item():
+        raise RuntimeError("tp output image is constant")
+    want_counts, want_coll = expected_tp_counts(model, TP, groups, STEPS,
+                                                TP_BATCH)
+    if counts != want_counts or coll != want_coll:
+        raise RuntimeError(f"tp DDIM-{STEPS} launches {counts} {coll}, "
+                           f"expected {want_counts} {want_coll}")
+    diff = (out.int() - outs["unsharded"].int()).abs()
+    share = (diff > 0).float().mean().item()
+    print(f"DDIM-{STEPS} eta 1 batch {TP_BATCH} -> uint8 on the {groups} x "
+          f"{TP} grid of one card: DDIM-4 warm-up {warm:.3f} s, "
+          f"{times['tp'][0]:.4f} s/batch; unsharded "
+          f"{' '.join(f'{t:.4f}' for t in times['unsharded'])} s/batch "
+          f"(the cost of the split on one card, not a tp speed); `cli "
+          f"--tp {TP}` on one card: {refused!r}; "
+          f"collectives {coll}; images against the unsharded run's: max "
+          f"|d| {diff.max().item()} levels, {share:.4f} of values differ; "
+          f"launches {counts} on {card}",
+          flush=True)
+    del pipes, tpm, model, outs
+    torch.cuda.empty_cache()
+
+    mm = build_latent_diffusion("mm_512", dtype="bfloat16", device=dev)
+    _redraw(mm, seed=87, dev=dev)
+    mm_tp = TPLatentDiffusion(mm, [dev] * TP, TP)
+    mm_check = _tp_against_unsharded(mm, mm_tp, dev, 2, 88,
+                                     f"mm_512 on tp {TP}", eval_too=False)
+    want_counts, want_coll = expected_tp_counts(mm, TP, 1, 4, 2)
+    if (mm_check["launches"] != want_counts
+            or mm_check["collectives"] != want_coll):
+        raise RuntimeError(f"mm_512 tp launches {mm_check['launches']} "
+                           f"{mm_check['collectives']}, expected "
+                           f"{want_counts} {want_coll}")
+    del mm, mm_tp
+    torch.cuda.empty_cache()
+    train = _tp_train_check(dev)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"tp phase: {seconds:.3f} s", flush=True)
+    return {"tp_run": {"launches": counts, "collectives": coll,
+                       "s_per_batch": times["tp"],
+                       "unsharded_s_per_batch": times["unsharded"],
+                       "warm_up_s": warm,
+                       "max_level_diff": int(diff.max().item()),
+                       "check": {k: v for k, v in check.items()
+                                 if k != "launches"},
+                       # held to its structure, outside the kernel line as
+                       # the other phases' batch-2 checks are
+                       "train": train, "phase_s": seconds},
+            "tp_mm512": mm_check}
+
+
 KERNELS = [
     # name, source, replaces (the TPU kernel's def line)
     ("fused_transformer_block", "upgpt_torch/csrc/fused_transformer.cu",
@@ -4650,8 +5008,9 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     `cli sample` (`distill_sample`) and served batch (`distill_serve`),
     the ddp phase's `cli train --multihost` ranks (`ddp_run`, every
     rank's own counts), the dp engine's batch (`dp_serve`), the orbax
-    phase's `cli sample` from the full-width orbax tree (`orbax_run`), and
-    one micro_block run (there the
+    phase's `cli sample` from the full-width orbax tree (`orbax_run`), the
+    tp phase's DDIM-50 on the interp_256 grid (`tp_run`) and mm_512 check
+    (`tp_mm512`), and one micro_block run (there the
     wrapper's calls, the ones captured in its CUDA graphs included; the
     graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
@@ -4700,6 +5059,17 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     return entry
 
 
+def _phase(seconds: dict, name: str, fn, *args):
+    """fn(*args), with its wall time (to the card's last queued work) kept
+    in `seconds` and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    print(f"phase {name}: {seconds[name]:.3f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script only runs "
@@ -4721,48 +5091,53 @@ def main() -> None:
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
 
-    cases = kernel_checks(dev)
-    cases.update(selfattn_checks(dev))
-    grad_rel = resblock_gradient_check(dev)
-    model, sampling = slice_run(dev, card)
+    secs = {}
+    cases = _phase(secs, "kernels", kernel_checks, dev)
+    cases.update(_phase(secs, "selfattn", selfattn_checks, dev))
+    grad_rel = _phase(secs, "resblock_gradient", resblock_gradient_check, dev)
+    model, sampling = _phase(secs, "sampling", slice_run, dev, card)
     torch.cuda.empty_cache()
-    unipc = unipc_run(dev, card, model)
+    unipc = _phase(secs, "unipc", unipc_run, dev, card, model)
     del model
     torch.cuda.empty_cache()
-    training = train_run(dev, card)
+    training = _phase(secs, "training", train_run, dev, card)
     torch.cuda.empty_cache()
-    distilled = distill_run(dev, card)
+    distilled = _phase(secs, "distill", distill_run, dev, card)
     torch.cuda.empty_cache()
-    fitted = fit_eval_and_vae_run(dev, card, training["ms_per_step"])
+    fitted = _phase(secs, "fit_eval_vae_ddp", fit_eval_and_vae_run, dev,
+                    card, training["ms_per_step"])
     torch.cuda.empty_cache()
-    laion = clip_and_laion_run(dev, card)
+    laion = _phase(secs, "clip_laion", clip_and_laion_run, dev, card)
     torch.cuda.empty_cache()
-    chain = chain_run(dev, card)
+    chain = _phase(secs, "chain", chain_run, dev, card)
     torch.cuda.empty_cache()
     k7_by_shape = chain.pop("k7_by_shape")
-    cases["fused_resblock"] = resblock_checks(dev, k7_by_shape)
+    cases["fused_resblock"] = _phase(secs, "resblock", resblock_checks,
+                                     dev, k7_by_shape)
     # a data-parallel rank's GroupNorm shapes: the train step's at 6 rows
     ddp_gn = {((DDP_RANK_BATCH,) + shape[1:], kind): n
               for (shape, kind), n in GN_LAUNCHES["training"].items()}
-    gn = groupnorm_checks(dev, {"training": training.pop("gn_by_shape"),
-                                "chain": chain.pop("gn_by_shape"),
-                                "ddp": ddp_gn},
-                          sorted({key[:4] for key in k7_by_shape}))
+    gn_by_path = {"training": training.pop("gn_by_shape"),
+                  "chain": chain.pop("gn_by_shape"), "ddp": ddp_gn}
+    gn = _phase(secs, "groupnorm", groupnorm_checks, dev, gn_by_path,
+                sorted({key[:4] for key in k7_by_shape}))
     cases["fused_group_norm"] = gn["fused_group_norm"]
     cases["tiled_group_norm"] = gn["tiled_group_norm"]
 
-    served = serve_run(dev, card)
+    served = _phase(secs, "serve", serve_run, dev, card)
     dp_served = served.pop("dp_serve")
     torch.cuda.empty_cache()
-    brought = bringup_and_app_run(dev, card)
+    brought = _phase(secs, "bringup_app", bringup_and_app_run, dev, card)
     torch.cuda.empty_cache()
-    orbax = orbax_run(dev, card, repo)
+    orbax = _phase(secs, "orbax", orbax_run, dev, card, repo)
     torch.cuda.empty_cache()
-    micro = micro_block_run()
+    tp = _phase(secs, "tp", tp_run, dev, card)
+    torch.cuda.empty_cache()
+    micro = _phase(secs, "micro_block", micro_block_run)
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain, "unipc_run": unipc, "micro_block": micro,
             "serve_run": served, "dp_serve": dp_served, **fitted, **laion,
-            **brought, **distilled, **orbax}
+            **brought, **distilled, **orbax, **tp}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]
@@ -4778,6 +5153,7 @@ def main() -> None:
     print(json.dumps({path: {k: v for k, v in run.items()
                              if k != "launches"}
                       for path, run in runs.items()}), flush=True)
+    print(json.dumps({"phase_seconds": secs}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

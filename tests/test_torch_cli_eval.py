@@ -159,11 +159,33 @@ def test_fid_weights_take_a_pth_and_refuse_a_directory(tmp_path):
     assert cli._fid_fn({}, args, "cpu") is None
 
 
-def test_cli_test_refuses_tensor_parallel(tree, tmp_path):
-    with pytest.raises(SystemExit, match="--tp"):
-        cli.main(["test", "--base", CONFIG, "--debug-encoder", "--ckpt",
-                  tree["ckpt"], "--tp", "2", "--out", str(tmp_path)]
-                 + _dotlist(tree))
+def test_cli_test_runs_tensor_parallel(tree, tmp_path):
+    """`cli test --tp 2` (one data group of two CPU shards) against --tp 1
+    from the checkpoint with its U-Net re-drawn (its proj_outs, ResBlock
+    out convs and out conv start at zero, which makes the eps 0 and would
+    hide a wrong split), in float32: the same dump and scores."""
+    from test_torch_tp import _redraw
+    from upgpt_torch.checkpoint import load_checkpoint
+
+    ckpt = str(tmp_path / "redrawn.pt")
+    model = load_checkpoint(build_latent_diffusion("tiny", device="cpu"),
+                            tree["ckpt"])
+    _redraw(model.unet, seed=6)
+    save_checkpoint(model, ckpt)
+    runs = [cli.main(["test", "--base", CONFIG, "--debug-encoder", "--ckpt",
+                      ckpt, "--steps", "2", "--batch", "2", "--max-images",
+                      "4", "--tp", str(tp), "--out", str(tmp_path / str(tp))]
+                     + _dotlist(tree) + ["model.params.dtype=float32"])
+            for tp in (1, 2)]
+    # float32 sums in another order move no 8-bit level: every JPEG byte
+    # for byte, and so the scores (equal measured)
+    assert _same(runs[1]["metrics"], runs[0]["metrics"])
+    for group in GROUPS:
+        names = sorted(os.listdir(tmp_path / "1" / group))
+        assert names == sorted(os.listdir(tmp_path / "2" / group))
+        for name in names:
+            assert ((tmp_path / "1" / group / name).read_bytes()
+                    == (tmp_path / "2" / group / name).read_bytes()), name
 
 
 TINY_VAE = ["model.params.ch=32", "model.params.ch_mult=(1,2)",

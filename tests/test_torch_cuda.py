@@ -1120,3 +1120,56 @@ def test_clip_encode_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
     for k in ("text_emb", "style_emb"):
         assert got[k].is_cuda and got[k].dtype == torch.float32
         assert _rel(got[k].cpu(), want[k]) <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_tp_shards_on_a_second_card_launch_there(dev, monkeypatch):
+    """A tensor-parallel shard on cuda:1 launches its kernels while cuda:0
+    is current (`_build.launch` makes the tensors' card current): K3 at a
+    shard's shape, then bf16 tiny on a tp-2 grid over both cards against
+    the unsharded model on cuda:0, its U-Net re-drawn (the zero-initialised
+    projections would make the eps 0)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a shard on a second card")
+    from upgpt_torch.inference.pipeline import GenerationPipeline
+    from upgpt_torch.parallel.tp import TPLatentDiffusion
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    one = torch.device("cuda", 1)
+    g = torch.Generator(device=one).manual_seed(0)
+    q, k, v = (torch.randn((4, 4, 768, 28), generator=g, device=one,
+                           dtype=torch.bfloat16) for _ in range(3))
+    with torch.cuda.device(0):
+        before = _routes(fa.flash_attention)
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize(one)
+        assert _moved(before, _routes(fa.flash_attention), "mma")
+    assert _rel(got, fa._reference_attention(q, k, v)) < 2e-2
+
+    zero = torch.device("cuda", 0)
+    model = build_latent_diffusion("tiny", device=zero, dtype="float32")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.unet.named_parameters():
+            z = torch.randn(p.shape, generator=gen)
+            p.copy_(z / p[0].numel() ** 0.5 if p.dim() >= 2
+                    else 1.0 + 0.1 * z if name.endswith("weight")
+                    else 0.1 * z)
+    tpm = TPLatentDiffusion(model, [zero, one], 2)
+    h, w = model.config.latent_size
+    batch = {"text_emb": torch.randn(2, 77, 768, generator=gen),
+             "style_emb": torch.randn(2, 9, 768, generator=gen),
+             "smpl": torch.randn(2, 1, 85, generator=gen),
+             "person_mask": torch.full((2, h, w, 1), -1.0)}
+    batch = {key: t.to(zero) for key, t in batch.items()}
+    x_T = torch.randn(2, h, w, 4, generator=gen).to(zero)
+    with torch.cuda.device(0):
+        got, want = (GenerationPipeline(m, num_steps=4, eta=0.0,
+                                        decode=False).generate(batch,
+                                                               x_T=x_T)
+                     for m in (tpm, model))
+    # float32 on both sides, the shards' sums in another order
+    assert (got - want).abs().max().item() < 2e-4
+    assert tpm.grid.all_reduces > 0

@@ -270,7 +270,7 @@ def test_port_never_imports_jax():
         "          'upgpt_torch.training.distill',\n"
         "          'upgpt_torch.data.synthetic',\n"
         "          'upgpt_torch.parallel.multihost',\n"
-        "          'upgpt_torch.parallel.mesh',\n"
+        "          'upgpt_torch.parallel.mesh', 'upgpt_torch.parallel.tp',\n"
         "          'upgpt_torch.convert.ocdbt', 'upgpt_torch.convert.orbax',\n"
         "          'upgpt_torch.native.zstd', 'upgpt_torch.data.smpl_pickle'):\n"
         "    assert m in mods, m\n"

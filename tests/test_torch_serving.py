@@ -203,11 +203,12 @@ def test_chained_upscale_serving(pipe):
 
 
 @pytest.mark.parametrize("flag,item", [("dp", "--dp 2 exceeds 0 CUDA"),
-                                       ("tp", "item 12"),
+                                       ("tp", "no tensor parallelism"),
                                        ("sidecar", "R2")])
 def test_unported_serving_options_are_refused(tmp_path, flag, item):
     # --dp is ported (replicas on cuda:0..N-1) and exits, as JAX's does,
-    # where fewer cards are visible: none here; --tp waits on item 12
+    # where fewer cards are visible: none here; --tp exits, as JAX's serve
+    # has no tensor parallelism (its --tp is on sample and test)
     ckpt = tmp_path / "model.pt"
     if flag == "sidecar":
         # a distilled student under the chain would sample off its grid

@@ -71,8 +71,13 @@ rows; with no such environment it trains as one process. Each rank
 prints a summary line on stderr at the end (`multihost summary {...}`).
 `serve --dp N` keeps a replica of the pipeline on each of cuda:0..N-1 and
 splits every batch over them; its kernels stay on (JAX turns its Pallas
-kernels off under --dp, ROADMAP §3 P9). `--tp` is not ported yet; it
-names the ROADMAP item it waits on.
+kernels off under --dp, ROADMAP §3 P9). `sample --tp N` and `test --tp N`
+split the U-Net's transformers over a (data x model) grid
+(`upgpt_torch.parallel.tp`): the process's cards, N shards a data group and
+the batch over the groups, as JAX's mesh over its devices; a model on the
+CPU takes one group of N CPU shards. The kernels stay on but for the fused
+SpatialTransformer's (ROADMAP §3 P12). `serve --tp` exits: JAX's serve has
+no tensor parallelism.
 """
 
 from __future__ import annotations
@@ -130,9 +135,6 @@ def _sidecar_path(ckpt) -> Path:
 
 
 def _refuse_unported(args) -> None:
-    if (getattr(args, "tp", 1) or 1) > 1:
-        raise SystemExit("--tp > 1: tensor parallelism is not ported yet "
-                         "(ROADMAP §1 item 12)")
     up_ckpt = getattr(args, "upscale_ckpt", None)
     if up_ckpt and _sidecar_path(up_ckpt).exists():
         raise SystemExit(
@@ -302,6 +304,32 @@ def _multihost_summary(trainer, state, group) -> dict:
     }
 
 
+def _tp_shard(model, tp, batch_size=None, devices=None):
+    """`model` sharded for `--tp` (JAX `_tp_shard`, `upgpt_tpu/cli.py:
+    180-210`) over `devices`: by default every card of the process for a
+    model on the card, as JAX's mesh takes `jax.devices()`, and one data
+    group of `tp` shards of the model's device otherwise. Exits with JAX's
+    messages where `tp` does not divide the devices or `batch_size` the
+    data groups; raises ValueError where the heads or a sharded dim do not
+    divide by `tp`. `tp` <= 1 returns `model`."""
+    if not tp or tp <= 1:
+        return model
+    from upgpt_torch.parallel.tp import TPLatentDiffusion
+
+    if devices is None:
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if model.device.type == "cuda" else [model.device] * tp)
+    n_dev = len(devices)
+    if n_dev % tp:
+        raise SystemExit(f"--tp {tp} does not divide {n_dev} devices")
+    if batch_size and batch_size % (n_dev // tp):
+        raise SystemExit(
+            f"--batch {batch_size} does not divide the data axis "
+            f"({n_dev} devices / tp {tp} = {n_dev // tp} shards)")
+    return TPLatentDiffusion(model, devices, tp)
+
+
 def cmd_sample(cfg, args):
     """Sample one batch of the config's test split (else validation, else
     train) from a checkpoint and write JPEGs (JAX `cmd_sample`)."""
@@ -314,6 +342,7 @@ def cmd_sample(cfg, args):
     enc = _build_cond_encoder(cfg, model,
                               allow_debug=getattr(args, "debug_encoder",
                                                   False))
+    model = _tp_shard(model, getattr(args, "tp", 1), args.batch)
     samp = cfg.get("sampling") or {}
     pipe = _pipeline(
         model, grid, num_steps=args.steps or samp.get("ddim_steps", 200),
@@ -383,6 +412,7 @@ def cmd_test(cfg, args):
     enc = _build_cond_encoder(cfg, model,
                               allow_debug=getattr(args, "debug_encoder",
                                                   False))
+    model = _tp_shard(model, getattr(args, "tp", 1), args.batch)
     fid_fn = _fid_fn(cfg, args, model.device)
     samp = cfg.get("sampling") or {}
     pipe = _pipeline(
@@ -785,6 +815,10 @@ def _build_serving(cfg, args):
     from upgpt_torch.inference.serving import ServingEngine
 
     _refuse_unported(args)
+    if (getattr(args, "tp", 1) or 1) > 1:
+        raise SystemExit("serve --tp: JAX's cli serve has no tensor "
+                         "parallelism (its --tp is on sample and test); "
+                         "serve --dp N splits each batch over N cards")
     dp = getattr(args, "dp", 1) or 1
     devices = None
     if dp > 1:
@@ -895,7 +929,11 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("--schedule", default=None,
                     choices=("uniform", "quad", "karras"))
     sp.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel sampling (not ported: > 1 raises)")
+                    help="tensor-parallel degree: split the U-Net's "
+                         "transformers over N shards of a (data x model) "
+                         "grid of the process's cards (one group of N CPU "
+                         "shards for a model on the CPU); the batch "
+                         "splits over the data groups")
 
     sp = _common(sub, "test")
     sp.add_argument("--ckpt", required=True,
@@ -913,7 +951,11 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("--schedule", default=None,
                     choices=("uniform", "quad", "karras"))
     sp.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel sampling (not ported: > 1 raises)")
+                    help="tensor-parallel degree: split the U-Net's "
+                         "transformers over N shards of a (data x model) "
+                         "grid of the process's cards (one group of N CPU "
+                         "shards for a model on the CPU); the batch "
+                         "splits over the data groups")
     sp.add_argument("--fid-weights", default=None,
                     help="pt_inception .pth (or the JAX CLI's orbax "
                          "tree) for the protocol's FID")
@@ -959,7 +1001,8 @@ def parser() -> argparse.ArgumentParser:
                     help="data-parallel serving: a replica on each of "
                          "cuda:0..N-1, every batch split over them")
     sp.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel serving (not ported: > 1 raises)")
+                    help="refused above 1: JAX's serve has no tensor "
+                         "parallelism (--dp splits batches over cards)")
     sp.add_argument("--sampler", default=None,
                     choices=("ddim", "dpm++", "unipc"))
     sp.add_argument("--schedule", default=None,

@@ -10,7 +10,7 @@ ddpm.py:1550-1577):
         "c_crossattn": (B, T, 768) context — text (77) | style (9) | pose (1),
                        or with `cond_fusion` the fused text (77) | pose (1),
         "c_concat":    (B, h, w, Cc) latent-resolution channel concat,
-        "cross_kv":    optional precompute_cross_kv output,
+        "cross_kv":    optional `cross_kv(context)` output,
     }
 
 Training (reference ddpm.py:1083-1123): `training_loss` encodes the image
@@ -32,7 +32,9 @@ from torch import nn
 from upgpt_torch.diffusion.schedule import DiffusionSchedule
 from upgpt_torch.models.cond_fusion import TextStyleCrossAttention
 from upgpt_torch.models.pose import LinearProject
-from upgpt_torch.models.unet import UNetConfig, UNetModel
+from upgpt_torch.models.unet import (
+    UNetConfig, UNetModel, precompute_cross_kv,
+)
 from upgpt_torch.models.vae import AutoencoderConfig, AutoencoderKL
 
 
@@ -179,6 +181,11 @@ class LatentDiffusion(nn.Module):
         else:
             raise NotImplementedError(key)
         return self.unet(x_in, t, context, cross_kv=cond.get("cross_kv"))
+
+    def cross_kv(self, context: torch.Tensor) -> Dict:
+        """The cross-attention K/V of a fixed context, projected once for
+        a sampling loop (`cond["cross_kv"]`)."""
+        return precompute_cross_kv(self.unet, context)
 
     def _table(self, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
         table = torch.from_numpy(np.asarray(getattr(self.schedule, name)))

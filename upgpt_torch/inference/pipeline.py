@@ -5,7 +5,7 @@ ldm/data/generate_utils.py:131-190, app.py:262-409). Conditioning enters as
 embeddings: text (77, 768), style slots (9, 768), SMPL (1, 85), with the
 person mask (h, w, 1) as the latent channel concat. The cross-attention K/V
 of the fixed context are projected once before the step loop
-(`precompute_cross_kv`).
+(`model.cross_kv`, per shard on a tensor-parallel model).
 
 Samplers: "ddim" (the reference protocol), "dpm++" (DPM-Solver++(2M)) and
 "unipc" (UniPC-2), each on the "uniform", "quad" or "karras" t-grid, and
@@ -47,7 +47,6 @@ from upgpt_torch.diffusion.dpm_solver import (
 from upgpt_torch.diffusion.latent_diffusion import LatentDiffusion
 from upgpt_torch.diffusion.schedule import make_ddim_schedule
 from upgpt_torch.diffusion.unipc import make_unipc_schedule, unipc_sample
-from upgpt_torch.models.unet import precompute_cross_kv
 
 # 9 style slots, fixed order (reference deepfashion_inshop.py:21)
 STYLE_NAMES = (
@@ -115,7 +114,7 @@ class GenerationPipeline:
     def _cond(self, context, concat):
         cond = {"c_crossattn": context, "c_concat": concat}
         if self.model.config.conditioning_key in ("hybrid", "crossattn"):
-            cond["cross_kv"] = precompute_cross_kv(self.model.unet, context)
+            cond["cross_kv"] = self.model.cross_kv(context)
         return cond
 
     def _prepare(self, batch: Dict[str, torch.Tensor]):

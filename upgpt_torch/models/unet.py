@@ -249,13 +249,17 @@ class SpatialTransformer(nn.Module):
         self._drop_tree(self)
         return super()._apply(fn, *args, **kwargs)
 
+    def cast_params(self, dtype: torch.dtype) -> Dict:
+        """`param_tree(self)` (built at first use) cast to `dtype`."""
+        if self._tree is None:
+            self._tree = param_tree(self)
+        return _cast_tree(self._tree, dtype)
+
     def forward(self, x: torch.Tensor, context=None, kv=None) -> torch.Tensor:
         b, h, w, c = x.shape
         comp = self.compute_dtype or self.proj_in.weight.dtype
         inner = self.proj_in.weight.shape[0]
-        if self._tree is None:
-            self._tree = param_tree(self)
-        p = _cast_tree(self._tree, comp)
+        p = self.cast_params(comp)
         tokens = x.reshape(b, h * w, c).to(comp)
         ctx = None if context is None else context.to(comp)
         kv0 = None if kv is None else kv.get("block_0")
@@ -433,15 +437,18 @@ def precompute_cross_kv(unet: UNetModel, context: torch.Tensor) -> Dict:
     These two products stay torch.matmul: the JAX package computes them
     outside any kernel too.
     """
-    comp = unet.compute_dtype
-    ctx = context.to(comp)
+    ctx = context.to(unet.compute_dtype)
+    return {name: layer_cross_kv(getattr(unet, name), ctx)
+            for name, _ch in cross_attention_layers(unet.config)}
+
+
+def layer_cross_kv(layer: SpatialTransformer, ctx: torch.Tensor) -> Dict:
+    """{block_i: (k, v)} of one SpatialTransformer: `ctx` (in the compute
+    dtype) through each block's attn2 to_k/to_v."""
+    comp = ctx.dtype
     out = {}
-    for name, _ch in cross_attention_layers(unet.config):
-        layer = getattr(unet, name)
-        blocks = {}
-        for d in range(unet.config.transformer_depth):
-            a2 = getattr(layer, f"block_{d}").attn2
-            blocks[f"block_{d}"] = (F.linear(ctx, a2.to_k.weight.to(comp)),
-                                    F.linear(ctx, a2.to_v.weight.to(comp)))
-        out[name] = blocks
+    for d in range(layer.depth):
+        a2 = getattr(layer, f"block_{d}").attn2
+        out[f"block_{d}"] = (F.linear(ctx, a2.to_k.weight.to(comp)),
+                             F.linear(ctx, a2.to_v.weight.to(comp)))
     return out

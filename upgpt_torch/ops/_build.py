@@ -17,7 +17,9 @@ output in the message.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 does not synchronise, and returns `cudaGetLastError()`; `check` raises on a
-non-zero code.
+non-zero code. The wrappers call it through `launch`, which makes the
+tensors' card the current device first: a kernel launches into the current
+device's context, and a stream of another card is refused there.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -169,6 +173,14 @@ def library() -> ctypes.CDLL:
             lib.upgpt_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def launch(device, entry: str, what: str, *args) -> None:
+    """C entry point `entry`(*args) with `device` (the card of the tensors
+    and of the stream in `args`) the current device, raising as `check`
+    does where it reports a CUDA error."""
+    with torch.cuda.device(device):
+        check(getattr(library(), entry)(*args), what)
 
 
 def check(code: int, what: str) -> None:

@@ -67,13 +67,15 @@ def attention_weight_split(
     attn_params: Mapping[str, Mapping[str, torch.Tensor]],
     num_heads: int,
     kv=None,
+    bias: bool = True,
 ) -> torch.Tensor:
     """Attention with the head split taken on the weights.
 
     `attn_params` holds `to_q`/`to_k`/`to_v`/`to_out`, each a
     {"weight": (out, in)[, "bias"]} dict in nn.Linear layout. `kv` is an
     optional precomputed packed (B, Tk, H*D) (k, v) pair. Same math as
-    `multi_head_attention`; the output includes `to_out`'s projection and
+    `multi_head_attention`; the output includes `to_out`'s projection and,
+    unless `bias` is False (a tensor-parallel shard's row partial), its
     bias.
     """
     comp = z_q.dtype
@@ -103,4 +105,4 @@ def attention_weight_split(
     wo = attn_params["to_out"]["weight"].to(comp)
     out = torch.einsum("bhtd,chd->btc", oh,
                        wo.reshape(wo.shape[0], num_heads, d))
-    return out + attn_params["to_out"]["bias"].to(comp)
+    return out + attn_params["to_out"]["bias"].to(comp) if bias else out

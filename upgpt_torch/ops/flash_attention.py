@@ -129,10 +129,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"flash kernel takes D <= 512, got {d}")
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
-    code = _build.library().upgpt_flash_attention(
+    _build.launch(
+        q.device, "upgpt_flash_attention", "flash_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, t, d, int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, "flash_attention")
     if bf16:
         flash_attention.launches += 1
     else:
@@ -245,12 +245,12 @@ def flash_backward_dq(q, k, v, o, do):
     dq = torch.empty_like(q)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     di = torch.empty_like(lse)
-    code = _build.library().upgpt_flash_backward_dq(
+    _build.launch(
+        q.device, "upgpt_flash_backward_dq", "flash_backward_dq",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         dq.data_ptr(), lse.data_ptr(), di.data_ptr(), b, h, t, d,
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, "flash_backward_dq")
     _count(flash_backward_dq, route)
     return dq, lse, di
 
@@ -266,12 +266,12 @@ def flash_backward_dkv(q, k, v, do, lse, di):
             raise ValueError(f"flash backward: {name} must be a contiguous "
                              f"({b}, {h}, {t}) float32 tensor")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    code = _build.library().upgpt_flash_backward_dkv(
+    _build.launch(
+        q.device, "upgpt_flash_backward_dkv", "flash_backward_dkv",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t,
         d, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, "flash_backward_dkv")
     _count(flash_backward_dkv, route)
     return dk, dv
 

@@ -269,13 +269,13 @@ def _stats_launch(x, num_groups, eps, scale=None, bias=None):
     if scale is not None:
         scale, bias = _affine(x, scale, bias)
     counters = gemm_plan.stream_counters(x.device, n)
-    code = _build.library().upgpt_gn_stats(
+    _build.launch(
+        x.device, "upgpt_gn_stats", "gn_stats",
         x.data_ptr(), ws.data_ptr(), out.data_ptr(),
         None if scale is None else scale.data_ptr(),
         None if bias is None else bias.data_ptr(), counters.data_ptr(), n,
         h * w, c, num_groups, chunks, eps, int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "gn_stats")
     return out
 
 
@@ -288,13 +288,13 @@ def _apply_launch(x, stats, scale, bias, with_silu):
                          f"float32 ({n}, 2, {c})")
     scale, bias = _affine(x, scale, bias)
     out = torch.empty_like(x)
-    code = _build.library().upgpt_gn_apply(
+    _build.launch(
+        x.device, "upgpt_gn_apply", "gn_apply",
         x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), n, h * w, c,
         stats_chunks(x.shape, x.element_size(), _sm_count(x.device)),
         int(with_silu), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "gn_apply")
     return out
 
 
@@ -336,13 +336,13 @@ def _launch(x, scale, bias, num_groups, eps, with_silu, plan=None):
                          f"past the one-pass kernel's gate")
     scale, bias = _affine(x, scale, bias)
     out = torch.empty_like(x)
-    code = _build.library().upgpt_fused_group_norm(
+    _build.launch(
+        x.device, "upgpt_fused_group_norm", "fused_group_norm",
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n,
         h * w, c, num_groups, plan.cluster, plan.rows, plan.threads, eps,
         int(with_silu),
         int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "fused_group_norm")
     _count(fused_group_norm, x.shape)
     fused_group_norm.clusters += n
     return out

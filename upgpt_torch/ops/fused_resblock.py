@@ -138,7 +138,8 @@ def _launch(x, gn_scale, gn_bias, packed, conv_bias, num_groups, eps):
                                          n + (plan.tiles if split else 0))
     partials = (torch.empty(plan.workspace_floats, dtype=torch.float32,
                             device=x.device) if split else None)
-    code = _build.library().upgpt_fused_resblock(
+    _build.launch(
+        x.device, "upgpt_fused_resblock", "fused_gn_silu_conv",
         x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
         packed.data_ptr(), conv_bias.data_ptr(), out.data_ptr(),
         ws.data_ptr(), coef.data_ptr(), counters.data_ptr(), plan_ints,
@@ -147,7 +148,6 @@ def _launch(x, gn_scale, gn_bias, packed, conv_bias, num_groups, eps):
         counters.numel() - n if split else 0, n, h, w, c, o,
         num_groups, chunks, eps, int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "fused_gn_silu_conv")
     if x.dtype == torch.bfloat16:
         fused_gn_silu_conv.launches += 1
         by_shape = fused_gn_silu_conv.launches_by_shape

@@ -27,6 +27,11 @@ gradients for the tokens, every parameter and the context (or K/V). With
 `use_flash` the recompute's long self-attention goes through the flash
 kernels, forward and backward (`ops/flash_attention.py`).
 
+`transformer_block_shards` is the twin split over the shards of a
+tensor-parallel grid (`parallel/tp.py`), Megatron's way: one all-gather
+after proj_in and four all-reduces, summed in float32; K1's one call spans
+those points, so the tp path runs this form in its place.
+
 `p` is the SpatialTransformer's parameter tree with the JAX package's keys
 (`norm`, `proj_in`, `proj_out`, `block_0/{attn1,attn2,ff,norm1..3}`) and
 nn.Linear-layout leaves (`weight` (out, in), `bias`), as `param_tree` builds
@@ -85,18 +90,21 @@ def _gelu_exact(z: torch.Tensor) -> torch.Tensor:
     return z * 0.5 * (1.0 + torch.erf(z * (1.0 / math.sqrt(2.0))))
 
 
-def _basic_block_ref(h, blk, heads, context, kv, use_flash):
-    """One BasicTransformerBlock (reference attention.py:196-215)."""
+def self_attention_product(z: torch.Tensor, a1: Tree, heads: int,
+                           use_flash: bool) -> torch.Tensor:
+    """Self-attention over `heads` heads of the (B, T, heads * d) queries
+    that `a1`'s to_q/to_k/to_v rows give, through `to_out`'s columns,
+    without its bias: through the flash kernels where `use_flash` and
+    their gate admit the shape, else the plain core. A tensor-parallel
+    shard passes its own heads' rows and columns."""
     from upgpt_torch.ops.attention import attention_weight_split
     from upgpt_torch.ops.flash_attention import (
         flash_attention, flash_attention_qualifies,
     )
 
-    comp = h.dtype
-    b, tq, c = h.shape
-    d = c // heads
-    z = _ln_tree(h, blk["norm1"])
-    a1 = blk["attn1"]
+    comp = z.dtype
+    b, tq, _ = z.shape
+    d = a1["to_q"]["weight"].shape[0] // heads
     if use_flash and flash_attention_qualifies(b, heads, tq, tq, d, comp):
         def headed(w):
             kern = w["weight"].to(comp)
@@ -107,11 +115,20 @@ def _basic_block_ref(h, blk, heads, context, kv, use_flash):
                             headed(a1["to_k"]).contiguous(),
                             headed(a1["to_v"]).contiguous())
         wo = a1["to_out"]["weight"].to(comp)
-        h = h + (torch.einsum("bhtd,chd->btc", o,
-                              wo.reshape(wo.shape[0], heads, d))
-                 + a1["to_out"]["bias"].to(comp))
-    else:
-        h = h + attention_weight_split(z, None, a1, heads)
+        return torch.einsum("bhtd,chd->btc", o,
+                            wo.reshape(wo.shape[0], heads, d))
+    return attention_weight_split(z, None, a1, heads, bias=False)
+
+
+def _basic_block_ref(h, blk, heads, context, kv, use_flash):
+    """One BasicTransformerBlock (reference attention.py:196-215)."""
+    from upgpt_torch.ops.attention import attention_weight_split
+
+    comp = h.dtype
+    z = _ln_tree(h, blk["norm1"])
+    a1 = blk["attn1"]
+    h = h + (self_attention_product(z, a1, heads, use_flash)
+             + a1["to_out"]["bias"].to(comp))
     z = _ln_tree(h, blk["norm2"])
     src = z if context is None else context.to(comp)
     h = h + attention_weight_split(z, src if kv is None else None,
@@ -140,15 +157,97 @@ def transformer_block_reference(
     h = group_norm(x_tokens, p["norm"]["weight"], p["norm"]["bias"],
                    num_groups=32, eps=gn_eps)
     h = _dense(h.to(comp), p["proj_in"])
-    names = sorted((k for k in p if k.startswith("block_")),
-                   key=lambda s: int(s.split("_")[1]))
-    for name in names:
-        if isinstance(kv, dict):
-            blk_kv = kv.get(name)
-        else:
-            blk_kv = kv if name == "block_0" else None
-        h = _basic_block_ref(h, p[name], heads, context, blk_kv, use_flash)
+    for name in _block_names(p):
+        h = _basic_block_ref(h, p[name], heads, context,
+                             _block_kv(kv, name), use_flash)
     return _dense(h, p["proj_out"]) + x_tokens
+
+
+def _block_names(p: Tree):
+    return sorted((k for k in p if k.startswith("block_")),
+                  key=lambda s: int(s.split("_")[1]))
+
+
+def _block_kv(kv, name: str):
+    """A block's (k, v) pair of `kv`: a pair for block_0 or a {block_i:
+    pair} dict."""
+    if isinstance(kv, dict):
+        return kv.get(name)
+    return kv if name == "block_0" else None
+
+
+# ---------------------------------------------------------------- shards
+
+
+def transformer_block_shards(grid, trees, xs, heads: int, contexts=None,
+                             kvs=None, gn_eps: float = 1e-6,
+                             use_flash: bool = False):
+    """`transformer_block_reference` split over the shards of one data
+    group of a tensor-parallel grid (`parallel/tp.py`), Megatron's way.
+
+    `trees[r]` is shard r's parameter tree: its `heads` heads' rows of
+    to_q/to_k/to_v and columns of to_out, its share of proj_in's outputs
+    and of proj_out's inputs, its run of GEGLU's value rows with the same
+    run of the gate rows (so its GEGLU needs no exchange) and the matching
+    columns of ff.proj_out; norms and the row-parallel biases whole. `xs[r]`
+    is its copy of the (B, T, C) tokens, on its device, `contexts[r]` /
+    `kvs[r]` its context or its heads' K/V columns (a pair or a {block_i:
+    pair} dict). Each shard runs GN32, its proj_in columns, then one
+    all-gather; per block LN1, attention over its heads (the flash kernels
+    where `use_flash` and their gate admit the shard's shape), its to_out
+    row partial, an all-reduce, the bias once and the residual; the same
+    for attn2; LN3, its GEGLU, ff.proj_out's row partial, an all-reduce,
+    the bias and the residual; then proj_out's row partial over its
+    channels of h, an all-reduce, the bias and the input residual. The
+    grid sums partials in float32; each sum plus its bias is rounded to the
+    compute dtype once, where the twin rounds the residual stream. Returns
+    each shard's (B, T, C) output, bitwise equal across shards.
+    """
+    from upgpt_torch.ops.attention import attention_weight_split
+
+    comp = xs[0].dtype
+
+    def reduce_into(hs, parts, biases):
+        sums = grid.all_reduce_sum(parts)
+        return [h + (s + b.float()).to(comp)
+                for h, s, b in zip(hs, sums, biases)]
+
+    hs = grid.all_gather([
+        _dense(group_norm(x, p["norm"]["weight"], p["norm"]["bias"],
+                          num_groups=32, eps=gn_eps).to(comp), p["proj_in"])
+        for x, p in zip(xs, trees)], dim=-1)
+    for name in _block_names(trees[0]):
+        blks = [p[name] for p in trees]
+        zs = [_ln_tree(h, blk["norm1"]) for h, blk in zip(hs, blks)]
+        hs = reduce_into(
+            hs, [self_attention_product(z, blk["attn1"], heads, use_flash)
+                 for z, blk in zip(zs, blks)],
+            [blk["attn1"]["to_out"]["bias"] for blk in blks])
+        parts = []
+        for r, (h, blk) in enumerate(zip(hs, blks)):
+            z = _ln_tree(h, blk["norm2"])
+            kv = None if kvs is None else _block_kv(kvs[r], name)
+            src = z if contexts is None else contexts[r].to(comp)
+            parts.append(attention_weight_split(
+                z, src if kv is None else None, blk["attn2"], heads, kv=kv,
+                bias=False))
+        hs = reduce_into(hs, parts,
+                         [blk["attn2"]["to_out"]["bias"] for blk in blks])
+        parts = []
+        for h, blk in zip(hs, blks):
+            g = _dense(_ln_tree(h, blk["norm3"]), blk["ff"]["proj_in"])
+            xh, gate = g.chunk(2, dim=-1)
+            act = (xh.float() * _gelu_exact(gate.float())).to(comp)
+            parts.append(F.linear(act, blk["ff"]["proj_out"]["weight"]
+                                  .to(comp)))
+        hs = reduce_into(hs, parts,
+                         [blk["ff"]["proj_out"]["bias"] for blk in blks])
+    n = hs[0].shape[-1] // len(trees)
+    sums = grid.all_reduce_sum([
+        F.linear(h[..., r * n:(r + 1) * n], p["proj_out"]["weight"].to(comp))
+        for r, (h, p) in enumerate(zip(hs, trees))])
+    return [(s + p["proj_out"]["bias"].float()).to(comp) + x
+            for s, p, x in zip(sums, trees, xs)]
 
 
 # ---------------------------------------------------------------- kernel
@@ -286,14 +385,14 @@ def _launch(x: torch.Tensor, p: Tree, heads: int, context, kv,
     _, plan, (floats, tiles) = gemm_plan.cached_transformer_plans(
         b, t, c, tk, None if kv is not None else ctx_dim)
     partials, counters = gemm_plan.split_scratch(x.device, floats, tiles)
-    code = _build.library().upgpt_fused_transformer_block(
+    _build.launch(
+        x.device, "upgpt_fused_transformer_block", "fused_transformer_block",
         ptrs[0], out.data_ptr(), *ptrs[1:], ws.data_ptr(), stats.data_ptr(),
         plan, None if partials is None else partials.data_ptr(), floats,
         None if counters is None else counters.data_ptr(),
         0 if counters is None else counters.numel(),
         b, t, c, heads, tk, ctx_dim, gn_eps, 1.0 / math.sqrt(c // heads),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "fused_transformer_block")
     fused_transformer_block.launches += 1
     return out
 

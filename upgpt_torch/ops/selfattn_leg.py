@@ -245,12 +245,12 @@ def _launch(entry: str, fn, x, weights, bo, heads: int) -> torch.Tensor:
            + [(bias, (c,), torch.float32)])
     qkv, o = _workspaces(b, t, c, heads, x.device)
     out = torch.empty_like(x)
-    code = getattr(_build.library(), entry)(
+    _build.launch(
+        x.device, entry, fn.__name__,
         x.data_ptr(), *(w.data_ptr() for w, _ in weights), bias.data_ptr(),
         qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
         _plan_array(b, t, c, heads, _sms(x.device)), b, t, c, heads,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, fn.__name__)
     fn.launches += 1
     return out
 
