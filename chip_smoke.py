@@ -1,6 +1,6 @@
 """Drive the PyTorch port's sampling, training, evaluation, 256->512 chain,
-serving, weight-drop runbook, demo app and tensor-parallel paths on one
-NVIDIA GPU.
+serving, weight-drop runbook, demo app, tensor-parallel, resume and
+walkthrough paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -33,8 +33,8 @@ CUDA toolkit. It
    re-drawn from a seeded generator (std 1/sqrt(fan_in), nothing left at
    zero), checks the kernel path against the plain path end to end (one
    U-Net eval, and a 4-step eta-0 sample plus decode at batch 2), then runs
-   DDIM-50 with eta 1 at batch 8 to uint8 images: one warm-up and one
-   timed run, counting its kernel launches;
+   DDIM-50 with eta 1 at batch 8 to uint8 images: a DDIM-4 warm-up at
+   that batch and one timed run, counting its kernel launches;
 4. training: builds interp_256 with float32 master parameters under bf16
    compute and the training kernels on (flash attention, fused transformer,
    fused GroupNorm), checks one AdamW step of the kernel path against the
@@ -61,7 +61,7 @@ CUDA toolkit. It
    `configs/deepfashion/interp_256.yaml` with the debug encoder, the
    compact transport and the training kernels on (model.params dotlist):
    one epoch at batch 12 (float32 masters, image grids and weights-only
-   snapshots every 4 steps), then `train --resume` for a second epoch under
+   snapshots every 8 steps), then `train --resume` for a second epoch under
    torch.profiler, each step's launches (the trainer module's
    `train_step`, wrapped here) held to the bare step's; checks the step
    and epoch counts, every loss finite, last/best/trainstep_* and the
@@ -117,7 +117,7 @@ CUDA toolkit. It
    kernel path against the plain path (all switches off) on one upscale
    U-Net eval and on the 512x384 image of a 4-step eta-0 chain at batch 2,
    then runs DDIM-50 eta 1 through both stages at batch 4 to uint8
-   (4, 512, 384, 3): one warm-up and one timed run, counting kernel
+   (4, 512, 384, 3): a DDIM-4 warm-up and one timed run, counting kernel
    launches against the counts the two models' structure gives, and the
    half-step kernel's launches by (shape, O);
 6. UniPC: on the sampling phase's weights, checks the kernel path against
@@ -202,7 +202,28 @@ CUDA toolkit. It
    backward on tp 2 at batch 2 against the unsharded step's (the loss,
    the re-assembled gradient and its worst leaf; K4 at the shards'
    heads), its launches against the structure;
-13. prints a JSON line of per-kernel results, the card's name and power
+13. resume: the JAX trainer's `checkpoints/last` of a full-width
+   interp_256 run at step 7 (the committed `interp_256_trainer_tiled`
+   orbax fixture: optax.adamw's moments and counts, the EMA shadow and
+   its count, the frozen VAE; every leaf a pattern regenerated here) and
+   its `last.meta.json` copied into a log directory: `Trainer.
+   load_checkpoint` into the fit phase's train state (float32 masters,
+   bf16 compute) on the card, every parameter, moment, shadow tensor and
+   VAE weight against its pattern in the port's layout bit for bit, the
+   counts at 7; then `python -m upgpt_torch.cli train --resume`
+   in-process at batch 12 on a generated tree for two steps: steps 8 and
+   9 in the fixture's epoch, finite losses, the first update at schedule
+   count 7, each step's launches against `expected_train_counts`, and
+   `last` the port's file after, at step 9, every first moment moved;
+14. examples: `upgpt_torch.examples.pose_transfer`, `pose_interpolation`
+   (2 frames) and `style_mixing` in-process at DDIM-4 from the orbax
+   phase's full-width interp_256 tree, and `upscale_chain` from it to a
+   re-drawn full-width upscale stage, with the configs as shipped and
+   the debug encoder, on a generated tree: each run's
+   launches against the structure, each JPEG of the right size (frame
+   count) and byte for byte the port's pipeline's image on the example's
+   `conditioning` batch and generator;
+15. prints a JSON line of per-kernel results, the card's name and power
    limit, and as its last line {"ok": true, "device": {...}}.
 
 On every path bf16 attention must run the tensor-core flash kernels: the
@@ -264,6 +285,9 @@ TRAIN_UPDATE_REL_L2 = 0.5
 CHAIN_EPS_REL_L2 = 5e-2
 CHAIN_IMAGE_REL_L2 = 5e-2
 BATCH, STEPS, TIMED_RUNS = 8, 50, 1
+# the DDIM-50 runs' warm-ups (sampling, chain): every shape of the timed
+# run, at WARM_STEPS of its steps
+WARM_STEPS = 4
 # bench.py's second row: UniPC-8 on the karras grid, eta 0, batch 64
 UNIPC_BATCH, UNIPC_STEPS = 64, 8
 # the self-attention leg at micro_block's geometry, and a ragged T
@@ -499,8 +523,10 @@ def kernel_checks(dev) -> dict:
         # runbook's validators (batch 1, the context projected in-kernel
         # over 77 tokens), its sampler check and the app (batch 2, Tk 87),
         # the app's upscale ds4 (batch 2, Tk 86), a data-parallel training
-        # rank's ds1 and ds2 (batch 6, the context projected in-kernel) and
-        # a dp serving replica's mm_512 ds2 (batch 4, Tk 87)
+        # rank's ds1 and ds2 (batch 6, the context projected in-kernel), a
+        # dp serving replica's mm_512 ds2 (batch 4, Tk 87), and the
+        # walkthroughs' batch of one (`upgpt_torch.examples`: interp_256's
+        # ds1 and ds2 at Tk 87, the upscale ds4 at Tk 86)
         for b, t, c, variant in [(BATCH, 768, 224, "kv"),
                                  (BATCH, 192, 448, "kv"),
                                  (TRAIN_BATCH, 768, 224, "fit"),
@@ -521,14 +547,20 @@ def kernel_checks(dev) -> dict:
                                  (DDP_RANK_BATCH, 768, 224, "ddp"),
                                  (DDP_RANK_BATCH, 192, 448, "ddp"),
                                  (SERVE_BATCH // DP_REPLICAS, 768, 448,
-                                  "dp")]:
+                                  "dp"),
+                                 (1, 768, 224, "example"),
+                                 (1, 192, 448, "example"),
+                                 (1, 768, 512, "example_up")]:
             p = _random_block(c, 768, g)
             x = randn(b, t, c).bfloat16()
             tk = {"chain": UP_CONTEXT_TOKENS, "laion_kv": LAION_CONTEXT_TOKENS,
                   "laion_ctx": LAION_CONTEXT_TOKENS, "validate": 77,
-                  "app_up": UP_CONTEXT_TOKENS}.get(variant, CONTEXT_TOKENS)
+                  "app_up": UP_CONTEXT_TOKENS,
+                  "example_up": UP_CONTEXT_TOKENS}.get(variant,
+                                                       CONTEXT_TOKENS)
             if variant in ("kv", "fit", "chain", "serve", "laion_kv",
-                           "bringup_kv", "app_up", "dp"):
+                           "bringup_kv", "app_up", "dp", "example",
+                           "example_up"):
                 kv = (randn(b, tk, c).bfloat16(), randn(b, tk, c).bfloat16())
                 kw, work = {"kv": kv}, _block_work(b, t, c, tk)
             else:
@@ -540,7 +572,8 @@ def kernel_checks(dev) -> dict:
                  "serve": "serve", "laion_kv": "laion_sample",
                  "laion_ctx": "laion_train", "validate": "bringup",
                  "bringup_kv": "bringup", "app_up": "app", "ddp": "ddp",
-                 "dp": "dp_serve"}.get(variant, "chain"),
+                 "dp": "dp_serve", "example": "examples_run",
+                 "example_up": "examples_run"}.get(variant, "chain"),
                 lambda: ft.fused_transformer_block(x, p, 8, **kw),
                 lambda: ft.transformer_block_reference(x, p, 8, **kw), work)
             row["gemm_library_ms"], row["gemm_library_device_ms"] = \
@@ -564,7 +597,8 @@ def kernel_checks(dev) -> dict:
         # mm_512 ds1 at batch 4, and the tp phase's shards: a data group's
         # decode and its shards' ds1 self-attention (4 rows, 4 heads) on
         # the interp_256 grid, mm_512's 512px decode and its shards' ds1
-        # and ds2 at batch 2, and the training check's ds1 at batch 2
+        # and ds2 at batch 2, the training check's ds1 at batch 2, and
+        # the walkthroughs' upscale ds2 at batch 1
         for shape, path in [((BATCH, 1, 768, 512), "sampling"),
                             ((TRAIN_BATCH, 1, 768, 512), "training"),
                             ((TRAIN_BATCH, 8, 768, 28), "training"),
@@ -585,7 +619,8 @@ def kernel_checks(dev) -> dict:
                             ((2, 1, 3072, 512), "tp_mm512"),
                             ((2, 8 // TP, 3072, 28), "tp_mm512"),
                             ((2, 8 // TP, 768, 56), "tp_mm512"),
-                            ((2, 8 // TP, 768, 28), "tp_train")]:
+                            ((2, 8 // TP, 768, 28), "tp_train"),
+                            ((1, 8, 3072, 64), "examples_run")]:
             q, k, v = (randn(shape).bfloat16() for _ in range(3))
             bh, t, d = shape[0] * shape[1], shape[2], shape[3]
             cases["flash_attention"].append(_compare(
@@ -1072,10 +1107,12 @@ def slice_run(dev, card: str) -> dict:
                               output_uint8=True)
     batch = _batch(BATCH, h, w, dev, seed=4)
     t0 = time.perf_counter()
-    pipe.generate(batch, torch.Generator(device=dev).manual_seed(5))
+    GenerationPipeline(model, num_steps=WARM_STEPS, eta=1.0,
+                       output_uint8=True).generate(
+        batch, torch.Generator(device=dev).manual_seed(5))
     torch.cuda.synchronize()
-    print(f"sampling warm-up run: {time.perf_counter() - t0:.3f} s",
-          flush=True)
+    print(f"sampling warm-up run (DDIM-{WARM_STEPS}): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     times, counts = [], []
     for i in range(TIMED_RUNS):
         gen = torch.Generator(device=dev).manual_seed(10 + i)
@@ -1876,12 +1913,12 @@ def distill_run(dev, card: str) -> dict:
 # config's men_factor 4 the 28 + 4 rows are 48, four batches of 12; the
 # validation split 24 pairs, two batches
 FIT_TRAIN_PAIRS, FIT_VAL_PAIRS, FIT_EPOCHS = (28, 4), (24, 0), 1
-FIT_IMAGE_LOG_EVERY = FIT_CKPT_EVERY = 4
+FIT_IMAGE_LOG_EVERY = FIT_CKPT_EVERY = 8
 FIT_SAMPLE_STEPS = 50
 # the kernel switches `train_run` sets, as the config's model.params dotlist
 FIT_KERNELS = ("use_flash_attention", "use_fused_transformer",
                "use_fused_groupnorm")
-LOADER_EPOCHS = 2
+LOADER_EPOCHS = 1
 
 
 class _StepProbe:
@@ -2002,7 +2039,7 @@ def _time_loader(cls, ds, transform, **kw) -> dict:
 def fit_dotlist(tree: dict, logdir: str) -> list:
     """The fit phase's `cli train` dotlist over a tree from
     `write_fashion_tree`: its three splits, batch 12, a log every step,
-    image logs and weights-only snapshots every 4 steps, the compact
+    image logs and weights-only snapshots every 8 steps, the compact
     transport and the training kernels on."""
     dotlist = [f"data.{s}.params.{k}={tree[v]}"
                for s in ("train", "validation", "test")
@@ -3589,9 +3626,12 @@ def chain_run(dev, card: str) -> dict:
         expected_sampling_counts(up, CHAIN_BATCH,
                                  UP_CONTEXT_TOKENS).values())}
     t0 = time.perf_counter()
-    pipe.generate(batch, torch.Generator(device=dev).manual_seed(36))
+    ChainedUpscalePipeline(base, up, num_steps=WARM_STEPS, eta=1.0,
+                           output_uint8=True).generate(
+        batch, torch.Generator(device=dev).manual_seed(36))
     torch.cuda.synchronize()
-    print(f"chain warm-up run: {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"chain warm-up run (DDIM-{WARM_STEPS}): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     times, counts, by_shape, gn_shapes = [], [], [], []
     for i in range(CHAIN_TIMED_RUNS):
@@ -4974,6 +5014,452 @@ def tp_run(dev, card: str) -> dict:
             "tp_mm512": mm_check}
 
 
+# the resume phase: the JAX trainer's `checkpoints/last` of a full-width
+# interp_256 run at step 7 (the committed `interp_256_trainer_tiled`
+# fixture: optax.adamw's state, the EMA and the frozen VAE, each leaf its
+# regenerated pattern) loaded into the fit phase's train state on the card,
+# then `cli train --resume` for RESUME_STEPS steps at batch 12
+RESUME_FIXTURE, RESUME_STEPS = "interp_256_trainer_tiled", 2
+# the training split of its tree: 4 pairs from WOMEN and 4 from MEN
+# sources, 24 rows with the config's men_factor 4, two batches of 12
+RESUME_PAIRS = (4, 4)
+
+
+def _train_yaml(repo: str, work: str, logdir: str, tree: dict,
+                steps: int) -> str:
+    """The fit phase's interp_256 config over `tree` (its training split
+    alone: no validation, image logs or snapshots), stopping at `steps`,
+    written as YAML under `work`."""
+    import yaml
+
+    from upgpt_torch.config import merge_configs
+
+    config = os.path.join(repo, "configs", "deepfashion", "interp_256.yaml")
+    # the validation and test splits are dropped below
+    cfg = merge_configs([config], fit_dotlist(
+        {**tree, "validation": tree["train"]}, logdir))
+    for split in ("validation", "test"):
+        cfg["data"].pop(split, None)
+    cfg["trainer"].update(log_images_every=0, ckpt_every_steps=None,
+                          max_steps=steps)
+    path = os.path.join(work, "resume.yaml")
+    with open(path, "w") as f:
+        # through JSON: tuples as lists, which safe YAML can write
+        yaml.safe_dump(json.loads(json.dumps(cfg)), f)
+    return path
+
+
+def _trainer_tensor(pattern, path: str, shape, dev) -> torch.Tensor:
+    """`pattern.trainer_leaf(path, shape)` made on the card: the leaf's
+    64-value period repeated to fill the shape (`np.resize`), squared
+    under `pattern.SQUARED`, in the JAX layout."""
+    period = torch.from_numpy(pattern.pattern(path)).to(dev)
+    n = math.prod(shape)
+    value = period.repeat(-(-n // period.numel()))[:n].reshape(shape)
+    return value * value if path.startswith(pattern.SQUARED) else value
+
+
+def _port_axes(path: str, ndim: int) -> tuple:
+    """The port's axis order for a JAX leaf, fixed here rather than asked
+    of the bridge under test: a rank-4 `kernel` HWIO -> OIHW, a rank-2
+    `kernel` (in, out) -> (out, in), every other leaf as it is."""
+    if path.endswith("/kernel") and ndim in (2, 4):
+        return (3, 2, 0, 1) if ndim == 4 else (1, 0)
+    return tuple(range(ndim))
+
+
+def _check_resumed(trainer, state, pattern, manifest: list, dev) -> dict:
+    """Every parameter, Adam moment, EMA tensor and VAE weight of a state
+    loaded from the fixture against its pattern made on the card and
+    permuted to the port's layout (`_port_axes`), bit for bit; the counts at
+    the fixture's step. Returns {part: tensors checked}."""
+    from upgpt_torch.convert.from_jax import torch_key
+
+    opt = state.optimizer.state
+    port = {"params": dict(zip(state.names, state.params)),
+            "opt_state/0/mu": {n: opt[p]["exp_avg"]
+                               for n, p in zip(state.names, state.params)},
+            "opt_state/0/nu": {n: opt[p]["exp_avg_sq"]
+                               for n, p in zip(state.names, state.params)},
+            "ema": dict(zip(state.names, state.ema.shadow)),
+            "frozen/vae": trainer.model.vae.state_dict()}
+    checked = dict.fromkeys(port, 0)
+    for m in manifest:
+        top = next((t for t in port if m["path"].startswith(t + "/")), None)
+        if top is None:
+            continue
+        sub = m["path"][len(top) + 1:]
+        got = port[top][torch_key(sub)]
+        want = _trainer_tensor(pattern, m["path"], m["shape"], dev).permute(
+            _port_axes(m["path"], len(m["shape"])))
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise RuntimeError(f"resume: {m['path']} differs from its "
+                               f"pattern after the load")
+        checked[top] += 1
+    want = {top: len(v) for top, v in port.items()}
+    if checked != want:
+        raise RuntimeError(f"resume: leaves checked {checked}, the state "
+                           f"holds {want}")
+    steps = {float(s["step"]) for s in opt.values()}
+    if (state.step, state.updates, state.ema.num_updates, steps) != (
+            pattern.TRAINER_STEP, pattern.TRAINER_STEP,
+            pattern.TRAINER_STEP, {float(pattern.TRAINER_STEP)}):
+        raise RuntimeError(f"resume: counts step {state.step}, updates "
+                           f"{state.updates}, ema {state.ema.num_updates}, "
+                           f"Adam {steps}")
+    return checked
+
+
+def resume_run(dev, card: str, repo: str) -> dict:
+    """The JAX trainer's run continued on the card, in a temporary
+    directory under upgpt_torch/_build: the fixture copied in as
+    `checkpoints/last` with its meta, then `cli train --resume` for
+    RESUME_STEPS steps at batch 12. Right after its
+    `Trainer.load_checkpoint` (wrapped here) every tensor and count of the
+    full-width train state is held to the pattern; each step's launches
+    to `expected_train_counts`, its schedule count to the fixture's and
+    on; `last` is the port's file after, at the last step with every
+    first moment moved."""
+    import shutil
+    import tempfile
+
+    from upgpt_torch import cli
+    from upgpt_torch.convert.from_jax import torch_key
+    from upgpt_torch.data.tree import write_fashion_tree
+    from upgpt_torch.training import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    pattern = _fixture_pattern(repo)
+    fixture = os.path.join(repo, ORBAX_FIXTURES, RESUME_FIXTURE)
+    with open(os.path.join(fixture, "MANIFEST.json")) as f:
+        manifest = json.load(f)["leaves"]
+    base = os.path.join(repo, "upgpt_torch", "_build")
+    os.makedirs(base, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="resume-", dir=base)
+    probe = _StepProbe(trainer_mod.train_step)
+    seen = []  # (schedule count before, LR after) of each step
+    loaded = {}
+    load = trainer_mod.Trainer.load_checkpoint
+
+    def step(model, state, *args, **kwargs):
+        before = state.updates
+        out = probe(model, state, *args, **kwargs)
+        seen.append((before, state.optimizer.param_groups[0]["lr"]))
+        return out
+
+    def load_and_check(trainer, state, name="last"):
+        t0 = time.perf_counter()
+        out = load(trainer, state, name)
+        torch.cuda.synchronize()
+        loaded["load_s"] = time.perf_counter() - t0
+        if out[1] is None or not os.path.isdir(last):
+            raise RuntimeError("resume: the load wrote over the directory "
+                               "or took no VAE")
+        t0 = time.perf_counter()
+        loaded["checked"] = _check_resumed(trainer, out[0], pattern,
+                                           manifest, dev)
+        loaded["check_s"] = time.perf_counter() - t0
+        loaded["expected"] = expected_train_counts(trainer.model)
+        loaded["lr"] = out[0].learning_rate * out[0].scheduler(
+            pattern.TRAINER_STEP)
+        return out
+
+    try:
+        logdir = os.path.join(work, "run")
+        last = os.path.join(logdir, "checkpoints", "last")
+        shutil.copytree(fixture, last)
+        shutil.copy(f"{fixture}.meta.json", f"{last}.meta.json")
+        tree = write_fashion_tree(os.path.join(work, "tree"),
+                                  {"train": RESUME_PAIRS}, seed=83)
+        end = pattern.TRAINER_STEP + RESUME_STEPS
+        config = _train_yaml(repo, work, logdir, tree, end)
+
+        trainer_mod.train_step = step
+        trainer_mod.Trainer.load_checkpoint = load_and_check
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state = cli.main(["train", "--resume", "--base", config,
+                          "--debug-encoder"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _read_counts()
+        trainer_mod.train_step = probe.fn
+        trainer_mod.Trainer.load_checkpoint = load
+        print(f"resume: the JAX trainer's checkpoints/last (full-width "
+              f"interp_256 at step {pattern.TRAINER_STEP}, optax.adamw) "
+              f"loaded into the train state on the card in "
+              f"{loaded['load_s']:.3f} s; {loaded['checked']} tensors equal "
+              f"to their pattern bit for bit ({loaded['check_s']:.3f} s)",
+              flush=True)
+        records = [json.loads(line) for line in open(
+            os.path.join(logdir, "metrics.jsonl"))]
+        losses = [(r["step"], r["epoch"], r["loss"]) for r in records
+                  if "loss" in r]
+        want_steps = list(range(pattern.TRAINER_STEP + 1, end + 1))
+        if (state.step != end or [s for s, _, _ in losses] != want_steps
+                or {e for _, e, _ in losses} != {pattern.TRAINER_EPOCH}
+                or not all(math.isfinite(x) for _, _, x in losses)):
+            raise RuntimeError(f"resume ran to step {state.step}: {losses}")
+        if [c for c, _ in seen] != list(range(pattern.TRAINER_STEP, end)) \
+                or seen[0][1] != loaded["lr"]:
+            raise RuntimeError(f"resume: schedule counts and LRs {seen}, "
+                               f"the first at count {pattern.TRAINER_STEP} "
+                               f"({loaded['lr']}) expected")
+        expected = loaded["expected"]
+        bad = [r["launches"] for r in probe.records
+               if r["launches"] != expected]
+        want = {k: RESUME_STEPS * v for k, v in expected.items()}
+        if bad or counts != want or any(
+                counts[k] == 0 for k, _, _ in KERNELS[:5]):
+            raise RuntimeError(f"resume launches {counts} ({bad[:1]} a "
+                               f"step), expected {want}")
+        ema_updates = state.ema.num_updates
+        del state
+        torch.cuda.empty_cache()
+
+        # --- `last` is the port's file now, at the last step ---
+        if not os.path.isfile(last) or os.path.exists(last + ".orbax"):
+            raise RuntimeError(f"resume: checkpoints "
+                               f"{os.listdir(os.path.dirname(last))}")
+        saved = torch.load(last, map_location="cpu", mmap=True,
+                           weights_only=True)
+        prefix = "opt_state/0/mu/"
+        mu = {torch_key(m["path"][len(prefix):]): m for m in manifest
+              if m["path"].startswith(prefix)}
+        names = saved["names"]
+        moved = 0
+        for i, name in enumerate(names):
+            m = mu[name]
+            before = _trainer_tensor(pattern, m["path"], m["shape"],
+                                     dev).permute(_port_axes(
+                                         m["path"], len(m["shape"])))
+            after = saved["opt_state"]["optimizer"]["state"][i]["exp_avg"]
+            moved += not torch.equal(after.to(dev), before)
+        if (saved["step"] != end or moved != len(names)
+                or ema_updates != end):
+            raise RuntimeError(f"resume: `last` at step {saved['step']}, "
+                               f"{moved}/{len(names)} first moments moved, "
+                               f"EMA count {ema_updates}")
+        del saved
+        print(f"cli train --resume from the JAX run: steps {want_steps} at "
+              f"batch {TRAIN_BATCH} in epoch {pattern.TRAINER_EPOCH}, "
+              f"losses {[x for _, _, x in losses]}, the first update at "
+              f"count {pattern.TRAINER_STEP} (lr {seen[0][1]:.3e}); "
+              f"{run_s:.3f} s of wall (model build, the load and its check, "
+              f"{RESUME_STEPS} steps and the port's `last` written in "
+              f"place of the directory); step ms (CUDA events) "
+              f"{' '.join(f'{x:.2f}' for x in probe.ms())}; `last` reloads "
+              f"at step {end} with {moved}/{len(names)} first moments "
+              f"moved; launches {counts} on {card}", flush=True)
+    finally:
+        trainer_mod.train_step = probe.fn
+        trainer_mod.Trainer.load_checkpoint = load
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"resume phase: {phase_s:.3f} s", flush=True)
+    return {"resume_run": {
+        "launches": counts, "load_s": loaded["load_s"],
+        "check_s": loaded["check_s"], "cli_wall_s": run_s,
+        "losses": [x for _, _, x in losses], "step_event_ms": probe.ms(),
+        "tensors_checked": loaded["checked"], "phase_s": phase_s}}
+
+
+# the examples phase: the four walkthroughs of `upgpt_torch.examples`
+# in-process, interp_256 at full width from the orbax phase's tiled
+# weights and a re-drawn full-width upscale stage, DDIM-EXAMPLE_STEPS, the
+# debug encoder, on a generated tree, with the configs as shipped (no
+# GroupNorm kernel switch); EXAMPLE_FRAMES interpolation frames, the
+# sampler check's batch, whose kernel cases `kernel_checks` holds
+EXAMPLE_STEPS, EXAMPLE_FRAMES = 4, 2
+
+
+def _jpeg_bytes(img) -> bytes:
+    import io
+
+    from PIL import Image
+
+    from upgpt_torch.examples import to_uint8
+
+    buf = io.BytesIO()
+    Image.fromarray(to_uint8(img)).save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def examples_run(dev, card: str, repo: str) -> dict:
+    """`python -m upgpt_torch.examples.*` in-process on the card, in a
+    temporary directory under upgpt_torch/_build: each example's launches
+    against the structure, its JPEGs (size, frame count) byte for byte
+    equal to the port's pipeline on its `conditioning` batch and a
+    generator seeded as the example seeds it. `examples.load` is
+    memoised here: the first example and `upscale_chain` load the
+    checkpoints through it, the later examples and the pipeline
+    references take the models they loaded. Returns {"examples_run"}
+    with the four runs' launches summed."""
+    import csv
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from upgpt_torch import cli, examples
+    from upgpt_torch.checkpoint import save_checkpoint
+    from upgpt_torch.config import merge_configs
+    from upgpt_torch.data.tree import write_fashion_tree
+    from upgpt_torch.examples import (
+        pose_interpolation, pose_transfer, style_mixing, upscale_chain,
+    )
+    from upgpt_torch.inference.pipeline import (
+        GenerationPipeline, UpscalePipeline,
+    )
+    from upgpt_torch.zoo import build_latent_diffusion
+
+    t_phase = time.perf_counter()
+    base = os.path.join(repo, "upgpt_torch", "_build")
+    os.makedirs(base, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="examples-", dir=base)
+    config = os.path.join(repo, "configs", "deepfashion", "interp_256.yaml")
+    tiled = os.path.join(repo, ORBAX_FIXTURES, "interp_256_tiled")
+    walls, counts, total = {}, {}, None
+    load, loaded = examples.load, {}
+
+    def load_once(base, ckpt, device):
+        key = (tuple(base), ckpt, str(device))
+        if key not in loaded:
+            loaded[key] = load(base, ckpt, device)
+        return loaded[key]
+
+    examples.load = load_once
+    try:
+        tree = write_fashion_tree(os.path.join(work, "tree"),
+                                  {"train": (1, 1)}, seed=91)
+        with open(tree["train"]) as f:
+            pair = next(csv.DictReader(f))
+        data = ["--folder", tree["folder"], "--data-file", tree["data_file"],
+                "--debug-encoder", "--steps", str(EXAMPLE_STEPS),
+                "--device", str(dev)]
+        runs = {
+            "pose_transfer": (pose_transfer, [
+                "--base", config, "--ckpt", tiled, "--src", pair["from"],
+                "--pose-of", pair["to"], "--out",
+                os.path.join(work, "sample.jpg")], 1),
+            "pose_interpolation": (pose_interpolation, [
+                "--base", config, "--ckpt", tiled, "--src", pair["from"],
+                "--pose-a", pair["from"], "--pose-b", pair["to"],
+                "--frames", str(EXAMPLE_FRAMES), "--out",
+                os.path.join(work, "interp")], EXAMPLE_FRAMES),
+            "style_mixing": (style_mixing, [
+                "--base", config, "--ckpt", tiled, "--src", pair["from"],
+                "--style-texts", '{"top": "red shirt"}', "--drop-slots",
+                "outer", "--out", os.path.join(work, "mixed.jpg")], 1)}
+        for name, (mod, argv, b) in runs.items():
+            argv = argv + data
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            mod.main(argv)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            counts[name] = _read_counts()
+            if name == "pose_transfer":  # the model it loaded
+                cfg, model = load_once([config], tiled, dev)
+                enc = cli._build_cond_encoder(cfg, model, allow_debug=True)
+                h, w = model.config.latent_size
+                f = 2 ** (len(model.config.vae.ch_mult) - 1)
+                image_hw = (f * h, f * w)
+            want = expected_sampling_counts(model, b, context_tokens(model),
+                                            EXAMPLE_STEPS)
+            if counts[name] != want:
+                raise RuntimeError(f"{name} launches {counts[name]}, "
+                                   f"expected {want}")
+            args = mod.parser().parse_args(argv)
+            batch = mod.conditioning(args, enc, dev)
+            pipe = GenerationPipeline(model, num_steps=EXAMPLE_STEPS,
+                                      eta=1.0)
+            gen = torch.Generator(device=dev).manual_seed(
+                getattr(args, "seed", 0))
+            imgs = pipe.generate(batch, gen, shared_x_T=(
+                mod is pose_interpolation))
+            files = ([f"{args.out}_{i:03d}.jpg" for i in range(b)]
+                     if mod is pose_interpolation else [args.out])
+            if len(imgs) != b:
+                raise RuntimeError(f"{name}: {len(imgs)} images")
+            for path, img in zip(files, imgs):
+                if (Image.open(path).size != image_hw[::-1]
+                        or open(path, "rb").read() != _jpeg_bytes(img)):
+                    raise RuntimeError(f"{name}: {path} is not the "
+                                       f"pipeline's image")
+
+        # --- upscale_chain, to a re-drawn upscale stage ---
+        base512 = os.path.join(repo, "configs", "deepfashion",
+                               "upscale.yaml")
+        up = build_latent_diffusion("upscale", dtype="bfloat16", device=dev)
+        _redraw(up, seed=92, dev=dev)
+        up_pt = os.path.join(work, "upscale.pt")
+        save_checkpoint(up, up_pt)
+        del up
+        argv = ["--base-256", config, "--base-512", base512, "--ckpt-256",
+                tiled, "--ckpt-512", up_pt, "--src", pair["from"],
+                "--pose-of", pair["to"], "--out",
+                os.path.join(work, "upscaled.jpg")] + data
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        upscale_chain.main(argv)
+        torch.cuda.synchronize()
+        walls["upscale_chain"] = time.perf_counter() - t0
+        counts["upscale_chain"] = _read_counts()
+        _, m512 = load_once([base512], up_pt, dev)
+        want = {k: a + b for (k, a), b in zip(
+            expected_sampling_counts(model, 1, CONTEXT_TOKENS,
+                                     EXAMPLE_STEPS).items(),
+            expected_sampling_counts(m512, 1, UP_CONTEXT_TOKENS,
+                                     EXAMPLE_STEPS).values())}
+        if counts["upscale_chain"] != want:
+            raise RuntimeError(f"upscale_chain launches "
+                               f"{counts['upscale_chain']}, expected {want}")
+        args = upscale_chain.parser().parse_args(argv)
+        batch = upscale_chain.conditioning(args, enc, dev)
+        img256 = GenerationPipeline(model, num_steps=EXAMPLE_STEPS, eta=1.0
+                                    ).generate(batch, torch.Generator(
+                                        device=dev).manual_seed(0))
+        img = UpscalePipeline(m512, num_steps=EXAMPLE_STEPS, eta=1.0
+                              ).upscale(img256, batch["text_emb"],
+                                        batch["style_emb"], torch.Generator(
+                                            device=dev).manual_seed(1))[0]
+        uh, uw = m512.config.latent_size
+        uf = 2 ** (len(m512.config.vae.ch_mult) - 1)
+        if (Image.open(args.out).size != (uf * uw, uf * uh)
+                or open(args.out, "rb").read() != _jpeg_bytes(img)):
+            raise RuntimeError("upscale_chain: its JPEG is not the "
+                               "pipelines' image")
+        del model, m512
+        loaded.clear()
+        total = _add_counts(*counts.values())
+        if not (total["fused_transformer_block"] and total["flash_attention"]):
+            raise RuntimeError(f"examples launches {total}")
+        print(f"examples (upgpt_torch.examples, DDIM-{EXAMPLE_STEPS}, "
+              f"full width, the debug encoder): pose_transfer, "
+              f"pose_interpolation ({EXAMPLE_FRAMES} frames), style_mixing "
+              f"from the orbax interp_256 tree and upscale_chain to "
+              f"{uf * uh}x{uf * uw} over a re-drawn upscale stage, every "
+              f"JPEG byte for byte the pipeline's; walls "
+              f"{json.dumps({k: round(v, 3) for k, v in walls.items()})} s "
+              f"(pose_transfer's and upscale_chain's with their model "
+              f"loads); launches {total} on {card}", flush=True)
+    finally:
+        examples.load = load
+        loaded.clear()
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"examples phase: {phase_s:.3f} s", flush=True)
+    return {"examples_run": {"launches": total, "walls_s": walls,
+                             "launches_by_example": counts,
+                             "phase_s": phase_s}}
+
+
 KERNELS = [
     # name, source, replaces (the TPU kernel's def line)
     ("fused_transformer_block", "upgpt_torch/csrc/fused_transformer.cu",
@@ -5010,7 +5496,10 @@ def kernel_entry(name, source, replaces, cases, by_path) -> dict:
     rank's own counts), the dp engine's batch (`dp_serve`), the orbax
     phase's `cli sample` from the full-width orbax tree (`orbax_run`), the
     tp phase's DDIM-50 on the interp_256 grid (`tp_run`) and mm_512 check
-    (`tp_mm512`), and one micro_block run (there the
+    (`tp_mm512`), the resume phase's `cli train --resume` from the JAX
+    trainer's checkpoint (`resume_run`), the four walkthroughs of
+    `upgpt_torch.examples` (`examples_run`), and one micro_block run (there
+    the
     wrapper's calls, the ones captured in its CUDA graphs included; the
     graphs' replays run the kernels again uncounted); ms, plain_ms,
     library_ms and bound_ms summed over the shapes the paths give it (one
@@ -5133,11 +5622,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     tp = _phase(secs, "tp", tp_run, dev, card)
     torch.cuda.empty_cache()
+    resumed = _phase(secs, "resume", resume_run, dev, card, repo)
+    torch.cuda.empty_cache()
+    walked = _phase(secs, "examples", examples_run, dev, card, repo)
+    torch.cuda.empty_cache()
     micro = _phase(secs, "micro_block", micro_block_run)
     runs = {"sampling_run": sampling, "train_step": training,
             "chain_run": chain, "unipc_run": unipc, "micro_block": micro,
             "serve_run": served, "dp_serve": dp_served, **fitted, **laion,
-            **brought, **distilled, **orbax, **tp}
+            **brought, **distilled, **orbax, **tp, **resumed, **walked}
     kernels = [kernel_entry(k, src, rep, cases[k], {
         path: run["launches"][k] for path, run in runs.items()})
         for k, src, rep in KERNELS]

@@ -272,7 +272,13 @@ def test_port_never_imports_jax():
         "          'upgpt_torch.parallel.multihost',\n"
         "          'upgpt_torch.parallel.mesh', 'upgpt_torch.parallel.tp',\n"
         "          'upgpt_torch.convert.ocdbt', 'upgpt_torch.convert.orbax',\n"
-        "          'upgpt_torch.native.zstd', 'upgpt_torch.data.smpl_pickle'):\n"
+        "          'upgpt_torch.native.zstd', 'upgpt_torch.data.smpl_pickle',\n"
+        "          'upgpt_torch.convert.optax_state',\n"
+        "          'upgpt_torch.examples',\n"
+        "          'upgpt_torch.examples.pose_transfer',\n"
+        "          'upgpt_torch.examples.pose_interpolation',\n"
+        "          'upgpt_torch.examples.style_mixing',\n"
+        "          'upgpt_torch.examples.upscale_chain'):\n"
         "    assert m in mods, m\n"
         "print(len(mods))\n"
     )

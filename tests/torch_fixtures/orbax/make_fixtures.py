@@ -3,7 +3,11 @@ package's own `StandardCheckpointer` (run where JAX and orbax are
 installed; the fixtures are committed, since the card's machine has
 neither):
 
-    JAX_PLATFORMS=cpu python tests/torch_fixtures/orbax/make_fixtures.py
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/orbax/make_fixtures.py \
+        [NAME ...]
+
+(every fixture where no NAME is given; rewriting one changes its bytes,
+uuids and timestamps, not its leaves)
 
 - `tiny_trainer/`: the payload `upgpt_tpu.training.trainer.Trainer`
   checkpoints (`Trainer._payload`: `step`, `params`, `opt_state` of the
@@ -17,6 +21,16 @@ neither):
   full-width interp_256 model, shaped by `jax.eval_shape` of its init,
   each leaf `pattern.leaf(path, shape)`; `MANIFEST.json` lists each leaf's
   path, dtype and shape.
+- `interp_256_trainer_tiled/`: the JAX trainer's `checkpoints/last` of
+  the full-width interp_256 run at step 7 (`Trainer._payload` of
+  `create_train_state`'s optax.adamw state, shaped by `jax.eval_shape`):
+  `params`, Adam's `mu`, the `ema` shadow and `frozen.vae` each
+  `pattern.leaf(path, shape)` under its own path, Adam's `nu` the square
+  of its leaf (a second moment is not negative), `step`, both optax
+  counts and `ema_updates` 7; `interp_256_trainer_tiled.meta.json`
+  beside it is `last.meta.json` (epoch 1, as the JAX trainer writes it);
+  `MANIFEST.json` lists each leaf's path, dtype and shape. ~7 GB decoded,
+  ~8 GB of host memory to write.
 """
 
 from __future__ import annotations
@@ -40,7 +54,9 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 sys.path.insert(0, str(HERE))
 
-from pattern import leaf  # noqa: E402
+from pattern import (  # noqa: E402
+    TRAINER_EPOCH, TRAINER_STEP, leaf, trainer_leaf,
+)
 from upgpt_tpu.training.train_state import create_train_state  # noqa: E402
 from upgpt_tpu.training.trainer import Trainer  # noqa: E402
 from upgpt_tpu.zoo import build_latent_diffusion  # noqa: E402
@@ -130,10 +146,39 @@ def interp_256_tiled(out: Path) -> None:
     (out / "MANIFEST.json").write_text(json.dumps(manifest) + "\n")
 
 
+def interp_256_trainer_tiled(out: Path) -> None:
+    jm = build_latent_diffusion("interp_256")
+    shapes = jax.eval_shape(jm.init_params, jax.random.PRNGKey(0))
+    trainable = {k: shapes[k] for k in ("unet", "pose")}
+    state = jax.eval_shape(
+        lambda p: create_train_state(p, learning_rate=1e-4), trainable)
+    flat, treedef = jax.tree_util.tree_flatten_with_path(
+        Trainer._payload(state, {"vae": shapes["vae"]}))
+
+    def value(path, a):
+        if a.shape == ():  # step, both optax counts, ema_updates
+            return np.asarray(TRAINER_STEP, a.dtype)
+        return trainer_leaf(path, a.shape)
+
+    _save(jax.tree_util.tree_unflatten(
+        treedef, [value(_path(keys), a) for keys, a in flat]), out)
+    manifest = {"step": TRAINER_STEP, "epoch": TRAINER_EPOCH,
+                "leaves": [{"path": _path(keys), "dtype": a.dtype.name,
+                            "shape": list(a.shape)} for keys, a in flat]}
+    (out / "MANIFEST.json").write_text(json.dumps(manifest) + "\n")
+    (out.parent / f"{out.name}.meta.json").write_text(
+        json.dumps({"epoch": TRAINER_EPOCH}))
+
+
+FIXTURES = {"tiny_trainer": tiny_trainer,
+            "interp_256_tiled": interp_256_tiled,
+            "interp_256_trainer_tiled": interp_256_trainer_tiled}
+
+
 if __name__ == "__main__":
-    tiny_trainer(HERE / "tiny_trainer")
-    interp_256_tiled(HERE / "interp_256_tiled")
-    for name in ("tiny_trainer", "interp_256_tiled"):
+    names = sys.argv[1:] or list(FIXTURES)
+    for name in names:
+        FIXTURES[name](HERE / name)
         size = sum(f.stat().st_size for f in (HERE / name).rglob("*")
                    if f.is_file())
         print(f"{name}: {size} bytes on disk")

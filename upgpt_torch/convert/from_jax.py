@@ -36,7 +36,7 @@ reads a module's geometry from the shapes (the CLIP towers).
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -75,15 +75,26 @@ def torch_key(jax_key: str) -> str:
     return ".".join(path + [_LEAF[leaf]])
 
 
+def permutation(jax_key: str, ndim: int) -> Tuple[int, ...]:
+    """The order in which the port's layout takes the axes of a JAX leaf
+    of rank `ndim` (`np.transpose`'s argument): a conv `kernel` HWIO ->
+    OIHW, a Dense `kernel` (in, out) -> (out, in), any other leaf as it
+    is."""
+    if jax_key.endswith("/kernel"):
+        if ndim == 4:  # HWIO -> OIHW
+            return (3, 2, 0, 1)
+        if ndim == 2:  # (in, out) -> (out, in)
+            return (1, 0)
+        raise ValueError(f"{jax_key}: kernel of rank {ndim}")
+    return tuple(range(ndim))
+
+
 def torch_array(jax_key: str, value: np.ndarray) -> np.ndarray:
     """Re-lay one JAX parameter in the port's layout."""
-    if jax_key.endswith("/kernel"):
-        if value.ndim == 4:  # HWIO -> OIHW
-            return np.ascontiguousarray(value.transpose(3, 2, 0, 1))
-        if value.ndim == 2:  # (in, out) -> (out, in)
-            return np.ascontiguousarray(value.T)
-        raise ValueError(f"{jax_key}: kernel of rank {value.ndim}")
-    return value
+    perm = permutation(jax_key, value.ndim)
+    if perm == tuple(range(value.ndim)):
+        return value
+    return np.ascontiguousarray(value.transpose(perm))
 
 
 def jax_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:

@@ -11,7 +11,8 @@ directory's root (`convert.ocdbt`), under keys `<name>/.zarray` and
 
 `restore(path)` returns the tree orbax's `restore` returns: dicts and lists
 rebuilt from the key types (tuples and named tuples come back as lists, as
-orbax gives them), `None` and empty containers where orbax recorded them,
+orbax gives them), `None` and empty containers where orbax recorded them
+(an empty tuple, such as `optax.MultiSteps`' `skip_state`, as `()`),
 python scalars for its `scalar` leaves, and every array leaf a numpy array
 of orbax's dtype, shape and bytes, or a torch tensor for bfloat16, which
 numpy lacks. Zarr v2 is read with a `zstd` compressor or none, C or F
@@ -37,7 +38,7 @@ from upgpt_torch.native import zstd
 PathLike = Union[str, os.PathLike]
 _SEQUENCE = 1  # a key_type; 2 is a dict key
 # the value types orbax records for None and empty containers
-_EMPTY = {"None": lambda: None, "Dict": dict, "List": list}
+_EMPTY = {"None": lambda: None, "Dict": dict, "List": list, "Tuple": tuple}
 _ARRAYS = ("np.ndarray", "jax.Array", "scalar")
 
 

@@ -22,6 +22,16 @@ from a synchronous host snapshot, with `<name>.meta.json` holding the
 epoch. `upgpt_torch.checkpoint.load_checkpoint` reads them for inference,
 EMA first.
 
+A run the JAX trainer wrote continues here: where `checkpoints/last` is
+its orbax directory, `--resume` reads the step, the weights, the
+optimizer state (optax.adamw, MultiSteps or the fused moments), the EMA
+and its count, and the frozen VAE through `convert.optax_state`, and the
+epoch from `last.meta.json`, which both trainers write alike. A tree that
+does not map onto the run's optimizer fails the run with the reason;
+nothing starts afresh. The first save then puts the port's file where the
+directory was, the two names exchanged in one rename, so `last` names a
+readable checkpoint at every moment.
+
 Every step's draws come from a generator seeded by (seed, step), JAX's
 `fold_in(rng, step)`: a run is a pure function of its seed and data, and a
 resumed run continues the uninterrupted one bit for bit. The step count
@@ -57,6 +67,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import signal
 import sys
 import time
@@ -185,6 +196,29 @@ def to_device(batch: Dict, keys, device) -> Dict[str, torch.Tensor]:
     return {k: (batch[k] if isinstance(batch[k], torch.Tensor)
                 else torch.as_tensor(np.asarray(batch[k]))).to(device)
             for k in keys if k in batch}
+
+
+# the JAX trainer's directory while the port's file takes its name;
+# `Trainer._checkpoint` reads it where that name is missing
+_ASIDE = ".orbax"
+
+
+def replace_directory(tmp: Path, path: Path) -> None:
+    """Put the file `tmp` where the JAX trainer's orbax directory `path`
+    is, so that a readable checkpoint, old or new, is on disk at every
+    moment: the directory moves aside to `<path>.orbax` (where
+    `Trainer._checkpoint` finds it until the file is in place), the file
+    takes its name, then the directory is removed. Refuses a directory
+    orbax did not write."""
+    from upgpt_torch.convert.orbax import is_orbax_dir
+
+    if not is_orbax_dir(path):
+        raise RuntimeError(f"{path} is a directory orbax did not write; "
+                           f"the checkpoint is not written over it")
+    aside = path.with_name(path.name + _ASIDE)
+    os.rename(path, aside)
+    os.replace(tmp, path)
+    shutil.rmtree(aside)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -344,7 +378,13 @@ class Trainer:
     def _write(self, payload: Dict, path: Path) -> None:
         tmp = path.with_name(path.name + ".tmp")
         torch.save(payload, tmp)
-        os.replace(tmp, path)
+        if path.is_dir():  # the JAX trainer's orbax checkpoint
+            replace_directory(tmp, path)
+        else:
+            os.replace(tmp, path)
+            # a JAX directory left aside by a save cut before its rename
+            shutil.rmtree(path.with_name(path.name + _ASIDE),
+                          ignore_errors=True)
 
     def _join_pending_save(self) -> None:
         if self._pending_save is not None:
@@ -402,16 +442,31 @@ class Trainer:
             return int(json.loads(meta.read_text()).get("epoch"))
         return None
 
+    def _checkpoint(self, name: str) -> Path:
+        """`checkpoints/<name>`, or the JAX directory moved aside from it
+        where a save was cut before its file took the name."""
+        path = self.logdir / "checkpoints" / name
+        aside = path.with_name(name + _ASIDE)
+        return aside if not path.exists() and aside.is_dir() else path
+
     @torch.no_grad()
     def load_checkpoint(self, state, name: str = "last"):
-        """Restore `name` into the live state and model in place (after
-        joining any write in flight). Returns (state, frozen): `frozen` is
-        the checkpoint's stored VAE state dict, loaded into the model, or
-        None where the checkpoint has none."""
+        """Restore `name`, the port's file or the JAX trainer's orbax
+        directory, into the live state and model in place (after joining
+        any write in flight). Returns (state, frozen): `frozen` is the
+        checkpoint's stored VAE state dict, loaded into the model, or None
+        where the checkpoint has none. A JAX tree that does not map onto
+        the state raises ValueError before anything is written."""
+        from upgpt_torch.convert.optax_state import trainer_payload
+        from upgpt_torch.convert.orbax import is_orbax_dir
+
         self._join_pending_save()
-        path = self.logdir / "checkpoints" / name
-        payload = torch.load(path, map_location=self.model.device,
-                             weights_only=True)
+        path = self._checkpoint(name)
+        if is_orbax_dir(path):
+            payload = trainer_payload(path, state, self.model.device)
+        else:
+            payload = torch.load(path, map_location=self.model.device,
+                                 weights_only=True)
         if list(payload["names"]) != list(state.names):
             raise RuntimeError(f"checkpoint {path} holds other parameters "
                                f"than the model trains")
@@ -641,7 +696,7 @@ class Trainer:
                 self.model.vae.load_state_dict(frozen_params["vae"],
                                                strict=True)
         state = self._create_state()
-        if resume and (self.logdir / "checkpoints" / "last").exists():
+        if resume and self._checkpoint("last").exists():
             state, restored = self.load_checkpoint(state)
             if restored is None and frozen_params is None:
                 raise RuntimeError(
