@@ -43,7 +43,9 @@ from upgpt_torch.inference.http_serve import RequestBuilder  # noqa: E402
 from upgpt_torch.inference.pipeline import (  # noqa: E402
     ChainedUpscalePipeline, GenerationPipeline,
 )
-from upgpt_torch.inference.serving import ServingEngine  # noqa: E402
+from upgpt_torch.inference.serving import (  # noqa: E402
+    ServingEngine, ServingStats,
+)
 from upgpt_torch.zoo import build_latent_diffusion  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,6 +123,15 @@ def test_many_requests_multiple_batches(pipe):
     assert eng.stats.batches == 3  # 2 + 2 + padded tail
     assert eng.stats.padded_slots == 1
     assert s["p95_latency_s"] >= s["p50_latency_s"] > 0
+
+
+def test_stats_percentiles_are_nearest_rank():
+    """p50 and p95 of 20 known latencies by nearest rank (`ceil(q n) - 1`
+    into the sorted list), as the benchmark reads a tail."""
+    stats = ServingStats()
+    stats.latencies_s.extend(float(i) for i in range(20, 0, -1))
+    s = stats.summary()
+    assert (s["p50_latency_s"], s["p95_latency_s"]) == (10.0, 19.0)
 
 
 def test_bad_request_fails_only_its_batch(pipe):

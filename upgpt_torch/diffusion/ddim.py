@@ -15,7 +15,9 @@ batch (ddim.py:171-178). Mask-inpaint blending (ddim.py:144-147) takes
 `inpaint_mask`/`x0` and draws (or is given, `inpaint_noise`) one q-sample
 noise per step before that step's eta noise, as the JAX package splits
 its key. `ddim_img2img` and `ddim_stochastic_encode` are the img2img pair
-(ddim.py:206-241).
+(ddim.py:206-241). Each step is a `sampler.step` span, and each eps-model
+call (`cfg_eps_model`, which UniPC and DPM-Solver++ share) a `unet` span
+(`utils/diagnostics.py`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from upgpt_torch.diffusion.schedule import DDIMSchedule, DiffusionSchedule
+from upgpt_torch.utils.diagnostics import span
 
 # eps-model signature: (x, t, cond) -> eps
 EpsModel = Callable[[torch.Tensor, torch.Tensor, Dict[str, Any]], torch.Tensor]
@@ -51,12 +54,13 @@ def cfg_eps_model(eps_model: EpsModel, cond: Dict[str, Any],
     use_cfg = uncond is not None and guidance_scale != 1.0
 
     def model_eps(x, t_b):
-        if use_cfg:
-            out = eps_model(torch.cat([x, x]), torch.cat([t_b, t_b]),
-                            _concat_cond(uncond, cond))
-            e_uncond, e_cond = out.chunk(2, dim=0)
-            return e_uncond + guidance_scale * (e_cond - e_uncond)
-        return eps_model(x, t_b, cond)
+        with span("unet"):
+            if use_cfg:
+                out = eps_model(torch.cat([x, x]), torch.cat([t_b, t_b]),
+                                _concat_cond(uncond, cond))
+                e_uncond, e_cond = out.chunk(2, dim=0)
+                return e_uncond + guidance_scale * (e_cond - e_uncond)
+            return eps_model(x, t_b, cond)
 
     return model_eps
 
@@ -123,26 +127,30 @@ def ddim_sample(
     f32 = np.float32
     preds = []
     for i in range(n):
-        at, ap = f32(ddim.alphas[i]), f32(ddim.alphas_prev[i])
-        soma, sig = f32(ddim.sqrt_one_minus_alphas[i]), f32(ddim.sigmas[i])
-        t = int(ddim.timesteps[i])
-        t_b = torch.full((shape[0],), t, dtype=torch.int32, device=x.device)
-        if inpaint_mask is not None:
-            # the known region, re-noised to this step's level
-            q = _draw(inpaint_noise, i, shape, generator, x.device)
-            x_orig = (float(schedule.sqrt_alphas_cumprod[t]) * x0.float()
-                      + float(schedule.sqrt_one_minus_alphas_cumprod[t]) * q)
-            x = x_orig * inpaint_mask + (1.0 - inpaint_mask) * x
-        eps = model_eps(x, t_b).float()
-        pred_x0 = (x - float(soma) * eps) / float(np.sqrt(at))
-        dir_xt = float(np.sqrt(np.maximum(f32(1.0) - ap - sig * sig,
-                                          f32(0.0)))) * eps
-        x = float(np.sqrt(ap)) * pred_x0 + dir_xt
-        if stochastic:
-            z = _draw(noise, i, shape, generator, x.device)
-            x = x + float(sig) * z * float(temperature)
-        if return_pred_x0:
-            preds.append(pred_x0)
+        with span("sampler.step", step=i):
+            at, ap = f32(ddim.alphas[i]), f32(ddim.alphas_prev[i])
+            soma = f32(ddim.sqrt_one_minus_alphas[i])
+            sig = f32(ddim.sigmas[i])
+            t = int(ddim.timesteps[i])
+            t_b = torch.full((shape[0],), t, dtype=torch.int32,
+                             device=x.device)
+            if inpaint_mask is not None:
+                # the known region, re-noised to this step's level
+                q = _draw(inpaint_noise, i, shape, generator, x.device)
+                x_orig = (
+                    float(schedule.sqrt_alphas_cumprod[t]) * x0.float()
+                    + float(schedule.sqrt_one_minus_alphas_cumprod[t]) * q)
+                x = x_orig * inpaint_mask + (1.0 - inpaint_mask) * x
+            eps = model_eps(x, t_b).float()
+            pred_x0 = (x - float(soma) * eps) / float(np.sqrt(at))
+            dir_xt = float(np.sqrt(np.maximum(f32(1.0) - ap - sig * sig,
+                                              f32(0.0)))) * eps
+            x = float(np.sqrt(ap)) * pred_x0 + dir_xt
+            if stochastic:
+                z = _draw(noise, i, shape, generator, x.device)
+                x = x + float(sig) * z * float(temperature)
+            if return_pred_x0:
+                preds.append(pred_x0)
     if return_pred_x0:
         return x, torch.stack(preds)
     return x

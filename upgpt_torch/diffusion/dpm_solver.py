@@ -27,6 +27,7 @@ import torch
 
 from upgpt_torch.diffusion.ddim import EpsModel, cfg_eps_model, initial_latent
 from upgpt_torch.diffusion.schedule import DiffusionSchedule, grid_timesteps
+from upgpt_torch.utils.diagnostics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,12 +99,13 @@ def dpm_solver_pp_sample(
     x0_prev = torch.zeros_like(x)
     f32 = np.float32
     for i in range(solver.num_steps):
-        a, c2 = f32(solver.alphas[i]), f32(solver.c2[i])
-        t_b = torch.full((shape[0],), int(solver.timesteps[i]),
-                         dtype=torch.int32, device=x.device)
-        eps = model_eps(x, t_b).float()
-        x0 = (x - float(np.sqrt(f32(1.0) - a)) * eps) / float(np.sqrt(a))
-        d = float(f32(1.0) + c2) * x0 - float(c2) * x0_prev
-        x = float(solver.coef_x[i]) * x + float(solver.coef_d[i]) * d
-        x0_prev = x0
+        with span("sampler.step", step=i):
+            a, c2 = f32(solver.alphas[i]), f32(solver.c2[i])
+            t_b = torch.full((shape[0],), int(solver.timesteps[i]),
+                             dtype=torch.int32, device=x.device)
+            eps = model_eps(x, t_b).float()
+            x0 = (x - float(np.sqrt(f32(1.0) - a)) * eps) / float(np.sqrt(a))
+            d = float(f32(1.0) + c2) * x0 - float(c2) * x0_prev
+            x = float(solver.coef_x[i]) * x + float(solver.coef_d[i]) * d
+            x0_prev = x0
     return x

@@ -38,6 +38,7 @@ import torch
 
 from upgpt_torch.diffusion.ddim import EpsModel, cfg_eps_model, initial_latent
 from upgpt_torch.diffusion.schedule import DiffusionSchedule, grid_timesteps
+from upgpt_torch.utils.diagnostics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,16 +150,19 @@ def unipc_sample(
     x0_a, x0_b, base = torch.zeros_like(x), torch.zeros_like(x), x
     f32 = np.float32
     for i in range(solver.num_steps):
-        a = f32(solver.alphas[i])
-        t_b = torch.full((shape[0],), int(solver.timesteps[i]),
-                         dtype=torch.int32, device=x.device)
-        eps = model_eps(x, t_b).float()
-        x0 = (x - float(np.sqrt(f32(1.0) - a)) * eps) / float(np.sqrt(a))
-        # corrector for this point (a no-op at step 0: base is x, ch = cn = 0)
-        x_corr = (base + float(solver.corr_hist[i]) * (x0_b - x0_a)
-                  + float(solver.corr_new[i]) * (x0 - x0_a))
-        # predictor for the next point (first order at step 0)
-        base = float(solver.coef_x[i]) * x_corr + float(solver.coef_0[i]) * x0
-        x = base + float(solver.pred_hist[i]) * (x0_a - x0)
-        x0_a, x0_b = x0, x0_a
+        with span("sampler.step", step=i):
+            a = f32(solver.alphas[i])
+            t_b = torch.full((shape[0],), int(solver.timesteps[i]),
+                             dtype=torch.int32, device=x.device)
+            eps = model_eps(x, t_b).float()
+            x0 = (x - float(np.sqrt(f32(1.0) - a)) * eps) / float(np.sqrt(a))
+            # corrector for this point (a no-op at step 0: base is x,
+            # ch = cn = 0)
+            x_corr = (base + float(solver.corr_hist[i]) * (x0_b - x0_a)
+                      + float(solver.corr_new[i]) * (x0 - x0_a))
+            # predictor for the next point (first order at step 0)
+            base = (float(solver.coef_x[i]) * x_corr
+                    + float(solver.coef_0[i]) * x0)
+            x = base + float(solver.pred_hist[i]) * (x0_a - x0)
+            x0_a, x0_b = x0, x0_a
     return x

@@ -30,6 +30,11 @@ The chained 256->512 path (app.py:93-97, 262-278, 379-409) is
 to the upscale stage's latent grid, and the upscale model's lr-conditioned
 sampler in kl-f4 latent space, decoded to 512x384. `UpscalePipeline` is the
 second stage alone.
+
+Spans (`utils/diagnostics.py`, recorded while its recorder is on):
+`pipeline.generate` around a call, `pipeline.prepare` (the context and the
+cross-attention K/V) and `pipeline.decode`; the samplers record each step
+(`sampler.step` around the eps model's `unet`).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from upgpt_torch.diffusion.dpm_solver import (
 from upgpt_torch.diffusion.latent_diffusion import LatentDiffusion
 from upgpt_torch.diffusion.schedule import make_ddim_schedule
 from upgpt_torch.diffusion.unipc import make_unipc_schedule, unipc_sample
+from upgpt_torch.utils.diagnostics import span
 
 # 9 style slots, fixed order (reference deepfashion_inshop.py:21)
 STYLE_NAMES = (
@@ -123,15 +129,16 @@ class GenerationPipeline:
         dev = model.device
         get = lambda k: (None if batch.get(k) is None  # noqa: E731
                          else batch[k].to(dev, torch.float32))
-        context = model.build_context(get("text_emb"), get("style_emb"),
-                                      get("smpl"))
-        cond = self._cond(context, get("person_mask"))
-        uncond = batch.get("uncond")
-        if uncond is not None:
-            concat = uncond.get("c_concat")
-            uncond = self._cond(
-                uncond["c_crossattn"].to(dev, torch.float32),
-                None if concat is None else concat.to(dev, torch.float32))
+        with span("pipeline.prepare"):
+            context = model.build_context(get("text_emb"), get("style_emb"),
+                                          get("smpl"))
+            cond = self._cond(context, get("person_mask"))
+            uncond = batch.get("uncond")
+            if uncond is not None:
+                concat = uncond.get("c_concat")
+                uncond = self._cond(
+                    uncond["c_crossattn"].to(dev, torch.float32),
+                    None if concat is None else concat.to(dev, torch.float32))
         return cond, uncond, self._shape(batch)
 
     def _initial_noise(self, batch, shape, generator, shared_x_T,
@@ -206,8 +213,9 @@ class GenerationPipeline:
         return eps_model
 
     def _finish(self, z: torch.Tensor) -> torch.Tensor:
-        img = torch.clamp(self.model.decode_first_stage(z), -1.0, 1.0)
-        return _to_uint8(img) if self.output_uint8 else img
+        with span("pipeline.decode"):
+            img = torch.clamp(self.model.decode_first_stage(z), -1.0, 1.0)
+            return _to_uint8(img) if self.output_uint8 else img
 
     @torch.inference_mode()
     def generate(
@@ -230,24 +238,27 @@ class GenerationPipeline:
         `x_T_seed` rows instead of `generator`: a CPU generator there, with
         `x_T_seed` on the host, keeps the call free of device syncs.
         """
-        cond, uncond, shape = self._prepare(batch)
-        if x_T is None:
-            x_T = self._initial_noise(batch, shape, generator, shared_x_T,
-                                      seed_generator)
-        x_T = x_T.to(self.model.device)
-        eps_model = self._eps_model()
-        kw = dict(x_T=x_T, guidance_scale=self.guidance_scale, uncond=uncond)
-        if self.sampler == "ddim":
-            z = ddim_sample(eps_model, self.ddim, shape, cond,
-                            generator=generator, noise=noise, **kw)
-        elif noise is not None:
-            raise ValueError(f"{self.sampler} is an ODE solver: no per-step "
-                             f"noise")
-        elif self.sampler == "dpm++":
-            z = dpm_solver_pp_sample(eps_model, self.solver, shape, cond, **kw)
-        else:
-            z = unipc_sample(eps_model, self.solver, shape, cond, **kw)
-        return self._finish(z) if self.decode else z
+        with span("pipeline.generate"):
+            cond, uncond, shape = self._prepare(batch)
+            if x_T is None:
+                x_T = self._initial_noise(batch, shape, generator, shared_x_T,
+                                          seed_generator)
+            x_T = x_T.to(self.model.device)
+            eps_model = self._eps_model()
+            kw = dict(x_T=x_T, guidance_scale=self.guidance_scale,
+                      uncond=uncond)
+            if self.sampler == "ddim":
+                z = ddim_sample(eps_model, self.ddim, shape, cond,
+                                generator=generator, noise=noise, **kw)
+            elif noise is not None:
+                raise ValueError(f"{self.sampler} is an ODE solver: no "
+                                 f"per-step noise")
+            elif self.sampler == "dpm++":
+                z = dpm_solver_pp_sample(eps_model, self.solver, shape, cond,
+                                         **kw)
+            else:
+                z = unipc_sample(eps_model, self.solver, shape, cond, **kw)
+            return self._finish(z) if self.decode else z
 
     @torch.inference_mode()
     def generate_progressive(

@@ -40,12 +40,23 @@ one-device engine's images for the same requests and seeds. The replicas
 run the hand-written kernels as one device does (JAX turns its Pallas
 kernels off under --dp, because GSPMD cannot partition them; ROADMAP §3
 P9).
+
+Spans (`utils/diagnostics.py`, recorded while its recorder is on): each
+request's `engine.queue` from its submit to the start of the dispatch of
+the batch that serves it; per batch `engine.collect`, `engine.pack`,
+`engine.dispatch`, and `engine.deliver` around `fetch`'s event wait
+(`engine.fence`) and copy to the host (`engine.copy`) and the futures it
+sets. Each carries the batch's index, and a request's wait its own id and
+its batch's, so a request's latency splits into queue, dispatch, the wait
+behind later dispatches, fence and copy.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
+import math
 import queue
 import threading
 import time
@@ -56,6 +67,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from upgpt_torch.utils.diagnostics import begin, end, span
 
 
 def _indexed(device: torch.device) -> torch.device:
@@ -75,8 +88,13 @@ class ServingStats:
     latencies_s: deque = field(default_factory=lambda: deque(maxlen=10000))
 
     def summary(self) -> Dict[str, float]:
+        """Counts, occupancy and latency percentiles (nearest rank,
+        `ceil(q n) - 1`, as the benchmark takes them)."""
         lat = sorted(self.latencies_s)
-        pick = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))] if lat else 0.0  # noqa: E731,E501
+
+        def pick(q):
+            return lat[max(0, math.ceil(q * len(lat)) - 1)] if lat else 0.0
+
         occ = (self.requests / self.images) if self.images else 0.0
         return {
             "requests": self.requests,
@@ -143,6 +161,7 @@ class ServingEngine:
         self.stats = ServingStats()
         self._queue: "queue.Queue" = queue.Queue()
         self._pushback = None  # group that didn't fit the batch being packed
+        self._request_ids = itertools.count()
         self._thread: Optional[threading.Thread] = None
         self._stopping = threading.Event()
 
@@ -173,14 +192,18 @@ class ServingEngine:
             raise ValueError(
                 f"group of {len(conds)} exceeds batch_size {self.batch_size}")
         futs: List[Future] = [Future() for _ in conds]
-        self._queue.put((list(conds), futs, time.perf_counter()))
+        # each request's wait, closed when its batch's dispatch begins
+        waits = [begin("engine.queue", request=next(self._request_ids))
+                 for _ in conds]
+        self._queue.put((list(conds), futs, time.perf_counter(), waits))
         return futs
 
     def start(self) -> None:
         if self._thread is not None:
             return
         self._stopping.clear()
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ServingEngine")
         self._thread.start()
 
     def stop(self) -> None:
@@ -234,29 +257,31 @@ class ServingEngine:
         device, a CUDA event recorded after them, or None on the CPU);
         with replicas, a list of each replica's part and a list of their
         events. Nothing here waits on the device."""
-        gen, host_gen = self.generators(index)
-        full = self.to_device(batch)
-        if len(self.replicas) == 1:
-            out = self.pipeline.generate(full, gen, seed_generator=host_gen)
-            return out, self._record(out)
-        draws = self.pipeline.draws(full, gen, seed_generator=host_gen)
-        per = self.batch_size // len(self.replicas)
-        outs, events = [], []
-        for r, (pipe, dev) in enumerate(zip(self.replicas, self.devices)):
-            rows = slice(r * per, (r + 1) * per)
-            on_dev = (torch.cuda.device(dev) if dev.type == "cuda"
-                      else contextlib.nullcontext())
-            with on_dev:
-                part = {k: (v[rows] if k == "x_T_seed" else
-                            v[rows].to(dev, non_blocking=True))
-                        for k, v in full.items()}
-                kw = {k: (v[:, rows] if k.endswith("noise") else v[rows]
-                          ).to(dev, non_blocking=True)
-                      for k, v in draws.items()}
-                out = pipe.generate(part, **kw)
-                outs.append(out)
-                events.append(self._record(out))
-        return outs, events
+        with span("engine.dispatch", batch=index):
+            gen, host_gen = self.generators(index)
+            full = self.to_device(batch)
+            if len(self.replicas) == 1:
+                out = self.pipeline.generate(full, gen,
+                                             seed_generator=host_gen)
+                return out, self._record(out)
+            draws = self.pipeline.draws(full, gen, seed_generator=host_gen)
+            per = self.batch_size // len(self.replicas)
+            outs, events = [], []
+            for r, (pipe, dev) in enumerate(zip(self.replicas, self.devices)):
+                rows = slice(r * per, (r + 1) * per)
+                on_dev = (torch.cuda.device(dev) if dev.type == "cuda"
+                          else contextlib.nullcontext())
+                with on_dev:
+                    part = {k: (v[rows] if k == "x_T_seed" else
+                                v[rows].to(dev, non_blocking=True))
+                            for k, v in full.items()}
+                    kw = {k: (v[:, rows] if k.endswith("noise") else v[rows]
+                              ).to(dev, non_blocking=True)
+                          for k, v in draws.items()}
+                    out = pipe.generate(part, **kw)
+                    outs.append(out)
+                    events.append(self._record(out))
+            return outs, events
 
     @staticmethod
     def _record(out: torch.Tensor):
@@ -275,9 +300,11 @@ class ServingEngine:
         if isinstance(out, list):
             return np.concatenate([ServingEngine.fetch(o, e)
                                    for o, e in zip(out, event)])
-        if event is not None:
-            event.synchronize()
-        return out.cpu().numpy()
+        with span("engine.fence"):
+            if event is not None:
+                event.synchronize()
+        with span("engine.copy"):
+            return out.cpu().numpy()
 
     # ---------------------------------------------------------- dispatcher
 
@@ -335,27 +362,30 @@ class ServingEngine:
         return items
 
     def _run(self) -> None:
-        inflight: deque = deque()  # (out, event, items), oldest first
+        inflight: deque = deque()  # (out, event, items, index), oldest first
 
         def fence(entry):
-            out, event, items = entry
-            try:
-                host = self.fetch(out, event)
-            except Exception as exc:  # noqa: BLE001 — fail that batch only
-                for _, futs, _ in items:
+            out, event, items, index = entry
+            # the batch's fence and copy (inside `fetch`) take its id
+            with span("engine.deliver", batch=index):
+                try:
+                    host = self.fetch(out, event)
+                except Exception as exc:  # noqa: BLE001 — fail that batch
+                    for _, futs, _, _ in items:
+                        for fut in futs:
+                            fut.set_exception(exc)
+                    return
+                t_done = time.perf_counter()
+                i = 0
+                for _, futs, t_in, _ in items:
                     for fut in futs:
-                        fut.set_exception(exc)
-                return
-            t_done = time.perf_counter()
-            i = 0
-            for _, futs, t_in in items:
-                for fut in futs:
-                    self.stats.latencies_s.append(t_done - t_in)
-                    fut.set_result(host[i])
-                    i += 1
+                        self.stats.latencies_s.append(t_done - t_in)
+                        fut.set_result(host[i])
+                        i += 1
 
         while True:
-            items = self._collect(wait=not inflight)
+            with span("engine.collect", batch=self.stats.batches):
+                items = self._collect(wait=not inflight)
             if not items:
                 if inflight:
                     fence(inflight.popleft())
@@ -363,12 +393,17 @@ class ServingEngine:
                         and self._queue.empty() and self._pushback is None):
                     return
                 continue
-            n_samples = sum(len(futs) for _, futs, _ in items)
+            index = self.stats.batches
+            n_samples = sum(len(futs) for _, futs, _, _ in items)
             try:
-                out, event = self.dispatch(self._pack(items),
-                                           self.stats.batches)
+                with span("engine.pack", batch=index):
+                    packed = self._pack(items)
+                for _, _, _, waits in items:
+                    for wait in waits:
+                        end(wait, batch=index)
+                out, event = self.dispatch(packed, index)
             except Exception as exc:  # noqa: BLE001 — shape errors
-                for _, futs, _ in items:
+                for _, futs, _, _ in items:
                     for fut in futs:
                         fut.set_exception(exc)
                 continue
@@ -378,6 +413,6 @@ class ServingEngine:
             self.stats.padded_slots += self.batch_size - n_samples
             # later batches' pack and dispatch run while the oldest one
             # computes; its copy to the host waits on its own event only
-            inflight.append((out, event, items))
+            inflight.append((out, event, items, index))
             while len(inflight) >= self.max_in_flight + 1:
                 fence(inflight.popleft())

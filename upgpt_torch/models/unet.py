@@ -25,6 +25,9 @@ others plain, as the JAX ResBlock does; the out head still follows
 `use_fused_groupnorm`. `use_checkpoint` recomputes every ResBlock and
 SpatialTransformer in the backward (`torch.utils.checkpoint`,
 non-reentrant), so their kernels launch again there.
+
+Each ResBlock and SpatialTransformer call is a span (`unet.resblock`,
+`unet.xformer`; `utils/diagnostics.py`), recorded while its recorder is on.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from upgpt_torch.ops.fused_transformer import (
     fused_transformer_block, fused_transformer_qualifies, param_tree,
     transformer_block_reference,
 )
+from upgpt_torch.utils.diagnostics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,12 +159,13 @@ class ResBlock(nn.Module):
         return conv(group_norm_silu(x, norm, self.fused == 1))
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self._half_step(x, self.norm_in, self.conv_in)
-        h = h + self.emb_proj(silu(emb))[:, None, None, :].to(h.dtype)
-        h = self._half_step(h, self.norm_out, self.conv_out)
-        if self.skip is not None:
-            x = self.skip(x)
-        return x + h.to(x.dtype)
+        with span("unet.resblock"):
+            h = self._half_step(x, self.norm_in, self.conv_in)
+            h = h + self.emb_proj(silu(emb))[:, None, None, :].to(h.dtype)
+            h = self._half_step(h, self.norm_out, self.conv_out)
+            if self.skip is not None:
+                x = self.skip(x)
+            return x + h.to(x.dtype)
 
 
 class CrossAttention(nn.Module):
@@ -256,24 +261,27 @@ class SpatialTransformer(nn.Module):
         return _cast_tree(self._tree, dtype)
 
     def forward(self, x: torch.Tensor, context=None, kv=None) -> torch.Tensor:
-        b, h, w, c = x.shape
-        comp = self.compute_dtype or self.proj_in.weight.dtype
-        inner = self.proj_in.weight.shape[0]
-        p = self.cast_params(comp)
-        tokens = x.reshape(b, h * w, c).to(comp)
-        ctx = None if context is None else context.to(comp)
-        kv0 = None if kv is None else kv.get("block_0")
-        tk = (kv0[0].shape[1] if kv0 is not None
-              else (ctx.shape[1] if ctx is not None else h * w))
-        if (self.fused and self.depth == 1 and inner == c
-                and (kv0 is not None or ctx is not None)
-                and fused_transformer_qualifies(h * w, c, self.num_heads, tk)):
-            out = fused_transformer_block(tokens, p, self.num_heads, ctx, kv0,
-                                          1e-6, self.use_flash)
-        else:
-            out = transformer_block_reference(tokens, p, self.num_heads, ctx,
-                                              kv, use_flash=self.use_flash)
-        return out.reshape(b, h, w, c)
+        with span("unet.xformer"):
+            b, h, w, c = x.shape
+            comp = self.compute_dtype or self.proj_in.weight.dtype
+            inner = self.proj_in.weight.shape[0]
+            p = self.cast_params(comp)
+            tokens = x.reshape(b, h * w, c).to(comp)
+            ctx = None if context is None else context.to(comp)
+            kv0 = None if kv is None else kv.get("block_0")
+            tk = (kv0[0].shape[1] if kv0 is not None
+                  else (ctx.shape[1] if ctx is not None else h * w))
+            if (self.fused and self.depth == 1 and inner == c
+                    and (kv0 is not None or ctx is not None)
+                    and fused_transformer_qualifies(h * w, c, self.num_heads,
+                                                    tk)):
+                out = fused_transformer_block(tokens, p, self.num_heads, ctx,
+                                              kv0, 1e-6, self.use_flash)
+            else:
+                out = transformer_block_reference(
+                    tokens, p, self.num_heads, ctx, kv,
+                    use_flash=self.use_flash)
+            return out.reshape(b, h, w, c)
 
 
 def _cast_tree(tree, dtype):

@@ -16,7 +16,8 @@ stride-2 conv. `encode` returns a `DiagonalGaussian` over float32 moments.
 GroupNorm kernels (`ops/fused_gn.py`): the one-pass kernel where it
 qualifies, the row-tiled one for decode-size tensors, as the JAX
 VAEGroupNorm does. The latent scale factor is applied by the diffusion
-model, not here.
+model, not here. `AutoencoderKL.decode` is a `vae.decode` span
+(`utils/diagnostics.py`).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from upgpt_torch.ops.basic import (
 from upgpt_torch.ops.fused_gn import (
     fused_group_norm, fused_group_norm_qualifies, tiled_group_norm_qualifies,
 )
+from upgpt_torch.utils.diagnostics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -319,7 +321,8 @@ class AutoencoderKL(nn.Module):
         return DiagonalGaussian(moments.float())
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(z))
+        with span("vae.decode"):
+            return self.decoder(self.post_quant_conv(z))
 
     def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,

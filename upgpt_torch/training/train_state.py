@@ -51,6 +51,12 @@ Under MultiSteps accumulation the micro-steps skip DDP's exchange
 the update averages the means over the group: one exchange an update.
 There `grad_norm` is the global norm of the averaged mean on the update
 call and NaN on the calls between, which form no global gradient.
+
+Spans (`utils/diagnostics.py`, recorded while its recorder is on):
+`train.step` around `train_step`, holding `train.forward`,
+`train.backward`, `train.grad_norm`, then `train.optimizer` (the
+accumulation and AdamW) and `train.ema` from either state's
+`apply_gradients`.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ from upgpt_torch.diffusion.latent_diffusion import LatentDiffusion
 from upgpt_torch.parallel import mesh, multihost
 from upgpt_torch.training.ema import EmaState, ema_decay, ema_init, ema_update
 from upgpt_torch.training.lr import lambda_linear_schedule
+from upgpt_torch.utils.diagnostics import span
 
 
 @dataclasses.dataclass
@@ -89,6 +96,15 @@ class TrainState:
         """Fold the parameters' `.grad` into the accumulator and, on every
         `accumulate`-th call (every call without accumulation), take one
         AdamW step; then the EMA."""
+        with span("train.optimizer"):
+            self._fold_and_update()
+        if self.ema is not None:
+            with span("train.ema"):
+                ema_update(self.ema, self.params)
+        self.step += 1
+        return self
+
+    def _fold_and_update(self) -> None:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -112,10 +128,6 @@ class TrainState:
                 self._update()
         else:
             self._update()
-        if self.ema is not None:
-            ema_update(self.ema, self.params)
-        self.step += 1
-        return self
 
     def _update(self) -> None:
         lr = self.learning_rate * self.scheduler(self.updates)
@@ -165,6 +177,25 @@ class FusedTrainState:
 
     @torch.no_grad()
     def apply_gradients(self) -> "FusedTrainState":
+        with span("train.optimizer"):
+            p2 = self._adamw()
+        if self.ema is not None:
+            with span("train.ema"):
+                f32 = np.float32
+                self.ema.num_updates += 1
+                one_minus = float(f32(1.0) - f32(
+                    ema_decay(self.ema.num_updates, self.ema.decay)))
+                s32 = [s.float() for s in self.ema.shadow]
+                d = torch._foreach_sub(s32, p2)
+                torch._foreach_mul_(d, one_minus)
+                torch._foreach_copy_(self.ema.shadow,
+                                     torch._foreach_sub(s32, d))
+        self.step += 1
+        return self
+
+    def _adamw(self) -> List[torch.Tensor]:
+        """The AdamW update into the moments and the parameters; returns
+        the updated parameters in float32."""
         f32 = np.float32
         t = f32(self.step + 1)
         # the schedule sees the pre-update count (0 on the first step)
@@ -195,17 +226,8 @@ class FusedTrainState:
         torch._foreach_copy_(self.mu, m2)
         torch._foreach_copy_(self.nu, v2)
         del m2, v2
-        if self.ema is not None:
-            self.ema.num_updates += 1
-            one_minus = float(f32(1.0) - f32(ema_decay(self.ema.num_updates,
-                                                       self.ema.decay)))
-            s32 = [s.float() for s in self.ema.shadow]
-            d = torch._foreach_sub(s32, p2)
-            torch._foreach_mul_(d, one_minus)
-            torch._foreach_copy_(self.ema.shadow, torch._foreach_sub(s32, d))
         torch._foreach_copy_(self.params, p2)
-        self.step += 1
-        return self
+        return p2
 
     def opt_state(self) -> dict:
         return {"mu": self.mu, "nu": self.nu}
@@ -365,37 +387,42 @@ def train_step(model: LatentDiffusion, state: TrainState,
     model's device): loss, loss_simple, loss_vlb (averaged over the group)
     and grad_norm, the global L2 norm of the gradients before the update
     (see the module docstring for accumulation under DDP)."""
-    for p in state.params:
-        p.grad = None
-    if draws is None:
-        draws = rank_draws(model, batch["image"].shape[0], generator)
-    ddp = state.ddp
-    # MultiSteps' k (FusedTrainState has none)
-    accumulate = getattr(state, "accumulate", 1)
-    accumulating = ddp is not None and accumulate > 1
-    updating = not accumulating or state.mini_step + 1 == accumulate
-    with ddp.no_sync() if accumulating else contextlib.nullcontext():
-        # through the wrapper's forward: DDP's reducer exchanges the
-        # gradients during this backward
-        loss, metrics = (model.training_loss(batch, draws=draws)
-                         if ddp is None else ddp(batch, draws))
-        loss.backward()
-    if ddp is not None:
-        ddp.exchange_log.end_step()
-    if not accumulating:
-        grad_norm = torch.nn.utils.get_total_norm(
-            [p.grad for p in state.params if p.grad is not None])
-    state.apply_gradients()
-    if accumulating:
-        # the averaged running mean, now in `.grad`, on the update call
-        grad_norm = (torch.nn.utils.get_total_norm(
-            [p.grad for p in state.params]) if updating else
-            torch.full((), float("nan"), device=loss.device))
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    if ddp is not None:
-        metrics = mesh.mean_over_group(metrics)
-    metrics["grad_norm"] = grad_norm
-    return state, metrics
+    with span("train.step"):
+        for p in state.params:
+            p.grad = None
+        if draws is None:
+            draws = rank_draws(model, batch["image"].shape[0], generator)
+        ddp = state.ddp
+        # MultiSteps' k (FusedTrainState has none)
+        accumulate = getattr(state, "accumulate", 1)
+        accumulating = ddp is not None and accumulate > 1
+        updating = not accumulating or state.mini_step + 1 == accumulate
+        with ddp.no_sync() if accumulating else contextlib.nullcontext():
+            # through the wrapper's forward: DDP's reducer exchanges the
+            # gradients during this backward
+            with span("train.forward"):
+                loss, metrics = (model.training_loss(batch, draws=draws)
+                                 if ddp is None else ddp(batch, draws))
+            with span("train.backward"):
+                loss.backward()
+        if ddp is not None:
+            ddp.exchange_log.end_step()
+        if not accumulating:
+            with span("train.grad_norm"):
+                grad_norm = torch.nn.utils.get_total_norm(
+                    [p.grad for p in state.params if p.grad is not None])
+        state.apply_gradients()
+        if accumulating:
+            # the averaged running mean, now in `.grad`, on the update call
+            with span("train.grad_norm"):
+                grad_norm = (torch.nn.utils.get_total_norm(
+                    [p.grad for p in state.params]) if updating else
+                    torch.full((), float("nan"), device=loss.device))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if ddp is not None:
+            metrics = mesh.mean_over_group(metrics)
+        metrics["grad_norm"] = grad_norm
+        return state, metrics
 
 
 @torch.no_grad()

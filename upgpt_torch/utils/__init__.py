@@ -1,8 +1,6 @@
 from upgpt_torch.utils.diagnostics import (  # noqa: F401
-    PhaseTimer,
     cast_floating,
     count_params,
     device_memory_stats,
     nan_guard,
-    profile_trace,
 )

@@ -1,47 +1,200 @@
-"""Tracing, profiling, memory stats and NaN guards.
+"""Spans and counters, memory stats, kernel launch counts and NaN guards.
 
 The port's counterpart of `upgpt_tpu.utils.diagnostics` (the reference's
 observability is a Lightning profiler summary and a commented-out
 CUDACallback, main.py:453-473,818):
 
-- `profile_trace`: `torch.profiler` around a phase, host and device
-  activity, written as a Chrome trace.
-- `PhaseTimer`: wall-clock phase accounting (data / step / eval / ckpt).
+- the span recorder: one in-memory recorder per process, off by default.
+  `span(name, ...)` times a block on the host (`with span("unet"): ...`);
+  `begin` / `end` time an interval that starts on one thread and ends on
+  another (a request's wait in the serving engine); `count` keeps
+  counters. `start()` turns the recorder on, `stop()` off, and `drain()`
+  hands over what it holds. Off, a span site costs one module-global
+  check and returns one shared no-op object: no allocation, no clock, no
+  tensor work and no sync, so it is safe inside a CUDA-graph capture.
+  On, a span records its name, start and end, its own id, its parent
+  (the span enclosing it on the same thread), its thread
+  (`threading.get_ident()`) and optional `batch` and `step` ids, an id
+  it is not given being its parent's; a linked span records a `request`
+  id from `begin` and a `batch` id from `end`. The buffer holds at
+  most `limit` spans and counts the ones it drops.
+- `kernel_launches`: the kernel wrappers' launch counters, by kernel and
+  by the routes away from one.
 - `device_memory_stats`: per-card memory from `torch.cuda.memory_stats`
   (the trainer's SIGUSR2 handler prints it).
 - `nan_guard`: raises on a non-finite floating tensor (the reference's
   `assert not torch.isnan(...)`, ddpm.py:177). It reads the tensors on
   the host, a sync: call it where the host needs the answer.
 - `count_params` and `cast_floating` (bf16 weights for serving).
-- `kernel_launches`: the kernel wrappers' launch counters, by kernel and
-  by the routes away from one.
+
+Clock: spans read `time.time_ns()`, the host clock the benchmark's
+ranges read (`portbench/trace.py`, `Ranges`). The offset that the
+benchmark's marker kernel gives between that clock and the profiler's
+(`clock_offset_ns`) therefore places these spans on the device trace's
+timeline unchanged, and a span's thread is the one whose launches the
+trace attributes to it (kineto keeps the low 32 bits of the launching
+thread's pthread id, which `threading.get_ident()` is).
 """
 
 from __future__ import annotations
 
-import contextlib
+import itertools
+import threading
 import time
-from collections import defaultdict
-from pathlib import Path
-from typing import Dict, Iterable, Union
+from typing import Dict, Iterable, Optional, Union
 
 import torch
 
+# ----------------------------------------------------------- span recorder
 
-@contextlib.contextmanager
-def profile_trace(logdir: str, name: str = "trace"):
-    """Profile the block's host and device activity into
-    `<logdir>/<name>.json` (chrome://tracing or Perfetto); yields the
-    profiler for `key_averages()`."""
-    from torch.profiler import ProfilerActivity, profile
+_on = False  # the one check a span site makes
+_limit = 0
+_spans: list = []  # recorded span tuples (see `_fields`)
+_dropped = 0
+_counters: Dict[str, int] = {}
+_threads: Dict[int, str] = {}  # get_ident -> the thread's name
+_lock = threading.Lock()
+_ids = itertools.count(1)
+_local = threading.local()
+_fields = ("id", "parent", "name", "thread", "start_ns", "end_ns",
+           "request", "batch", "step", "linked")
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    Path(logdir).mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(str(Path(logdir) / f"{name}.json"))
+
+def _stack() -> list:
+    """This thread's open spans, innermost last."""
+    try:
+        return _local.stack
+    except AttributeError:
+        _threads[threading.get_ident()] = threading.current_thread().name
+        _local.stack = []
+        return _local.stack
+
+
+def _record(rec: tuple) -> None:
+    global _dropped
+    with _lock:
+        if len(_spans) < _limit:
+            _spans.append(rec)
+        else:
+            _dropped += 1
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "batch", "step", "id", "parent", "start")
+
+    def __init__(self, name, batch, step):
+        self.name, self.batch, self.step = name, batch, step
+
+    def __enter__(self):
+        stack = _stack()
+        self.parent = 0
+        if stack:
+            up = stack[-1]
+            self.parent = up.id
+            if self.batch is None:
+                self.batch = up.batch
+            if self.step is None:
+                self.step = up.step
+        self.id = next(_ids)
+        stack.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.time_ns()
+        _stack().pop()
+        if _on:
+            _record((self.id, self.parent, self.name, threading.get_ident(),
+                     self.start, end_ns, None, self.batch, self.step, False))
+        return False
+
+
+def span(name: str, batch: Optional[int] = None, step: Optional[int] = None):
+    """A context manager that records the block as span `name` while the
+    recorder is on; a shared no-op while it is off."""
+    if not _on:
+        return _NO_SPAN
+    return _Span(name, batch, step)
+
+
+class _Link:
+    __slots__ = ("name", "id", "thread", "start", "request")
+
+
+def begin(name: str, request: Optional[int] = None):
+    """Open a linked span, which `end(token)` closes on any thread; its
+    thread is the one that began it. None while the recorder is off."""
+    if not _on:
+        return None
+    _stack()  # names this thread in `drain()`'s threads
+    link = _Link()
+    link.name, link.request = name, request
+    link.id = next(_ids)
+    link.thread = threading.get_ident()
+    link.start = time.time_ns()
+    return link
+
+
+def end(token, batch: Optional[int] = None) -> None:
+    """Close a linked span from `begin`, with the batch id given here."""
+    if token is None or not _on:
+        return
+    end_ns = time.time_ns()
+    _record((token.id, 0, token.name, token.thread, token.start, end_ns,
+             token.request, batch, None, True))
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to counter `name` while the recorder is on."""
+    if not _on:
+        return
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def start(limit: int = 1_000_000) -> None:
+    """Empty the recorder and turn it on; it keeps at most `limit` spans."""
+    global _on, _limit, _dropped
+    with _lock:
+        _spans.clear()
+        _counters.clear()
+        _dropped = 0
+        _limit = int(limit)
+        _on = True
+
+
+def stop() -> None:
+    """Turn the recorder off; spans still open are not recorded."""
+    global _on
+    _on = False
+
+
+def drain() -> dict:
+    """What the recorder holds, which it then forgets: `spans` (dicts of
+    `_fields`, in the order they closed), `counters`, `dropped` (spans
+    past the limit) and `threads` ({thread: its name})."""
+    global _dropped
+    with _lock:
+        out = {"spans": [dict(zip(_fields, r)) for r in _spans],
+               "counters": dict(_counters), "dropped": _dropped,
+               "threads": dict(_threads)}
+        _spans.clear()
+        _counters.clear()
+        _dropped = 0
+    return out
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -92,30 +245,6 @@ def device_memory_stats() -> Dict[str, Dict[str, float]]:
             / 1e6,
         }
     return out
-
-
-class PhaseTimer:
-    """Accumulating wall-clock phase timer; .summary() like a profiler dump."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> str:
-        lines = ["phase                 total_s    calls   mean_ms"]
-        for name, tot in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name:<20} {tot:8.2f} {n:8d} {tot / n * 1e3:9.2f}")
-        return "\n".join(lines)
 
 
 def _tensors(tree) -> Iterable[torch.Tensor]:
