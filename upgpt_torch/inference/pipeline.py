@@ -35,6 +35,10 @@ Spans (`utils/diagnostics.py`, recorded while its recorder is on):
 `pipeline.generate` around a call, `pipeline.prepare` (the context and the
 cross-attention K/V) and `pipeline.decode`; the samplers record each step
 (`sampler.step` around the eps model's `unet`).
+
+Both sampling calls open `graphed.sampling()`: on a card, the U-Net's
+ResBlocks and SpatialTransformers replay CUDA graphs of their bodies
+(`models/graphed.py`).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from upgpt_torch.diffusion.dpm_solver import (
 from upgpt_torch.diffusion.latent_diffusion import LatentDiffusion
 from upgpt_torch.diffusion.schedule import make_ddim_schedule
 from upgpt_torch.diffusion.unipc import make_unipc_schedule, unipc_sample
+from upgpt_torch.models import graphed
 from upgpt_torch.utils.diagnostics import span
 
 # 9 style slots, fixed order (reference deepfashion_inshop.py:21)
@@ -238,7 +243,7 @@ class GenerationPipeline:
         `x_T_seed` rows instead of `generator`: a CPU generator there, with
         `x_T_seed` on the host, keeps the call free of device syncs.
         """
-        with span("pipeline.generate"):
+        with span("pipeline.generate"), graphed.sampling():
             cond, uncond, shape = self._prepare(batch)
             if x_T is None:
                 x_T = self._initial_noise(batch, shape, generator, shared_x_T,
@@ -282,11 +287,12 @@ class GenerationPipeline:
         if x_T is None:
             x_T = torch.randn(shape, generator=generator,
                               device=self.model.device)
-        z, inter = ddim_sample(
-            self._eps_model(), self.ddim, shape, cond, generator=generator,
-            x_T=x_T.to(self.model.device), noise=noise,
-            guidance_scale=self.guidance_scale, uncond=uncond,
-            return_pred_x0=True)
+        with graphed.sampling():
+            z, inter = ddim_sample(
+                self._eps_model(), self.ddim, shape, cond,
+                generator=generator, x_T=x_T.to(self.model.device),
+                noise=noise, guidance_scale=self.guidance_scale,
+                uncond=uncond, return_pred_x0=True)
         idx = np.linspace(0, self.ddim.num_steps - 1,
                           n_frames).round().astype(int)
         prog = torch.stack([self._finish(inter[i]) for i in idx], dim=1)

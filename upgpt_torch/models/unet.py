@@ -28,6 +28,8 @@ non-reentrant), so their kernels launch again there.
 
 Each ResBlock and SpatialTransformer call is a span (`unet.resblock`,
 `unet.xformer`; `utils/diagnostics.py`), recorded while its recorder is on.
+While a pipeline samples on a card (`graphed.sampling()`, no autograd),
+each of those calls replays a CUDA graph of its body (`models/graphed.py`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from upgpt_torch.models import graphed
 from upgpt_torch.models.layers import Conv2d, Dense, Norm
 from upgpt_torch.ops.attention import multi_head_attention
 from upgpt_torch.ops.basic import (
@@ -147,6 +150,14 @@ class ResBlock(nn.Module):
                                zero_init=True, dtype=dtype)
         self.skip = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                      if in_channels != out_channels else None)
+        # CUDA graphs of forward's body, dropped whenever the parameters
+        # may have been replaced (.to() and friends, loading)
+        self._graphs = graphed.GraphCache()
+        self.register_load_state_dict_post_hook(graphed.drop)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     def _half_step(self, x: torch.Tensor, norm: Norm,
                    conv: Conv2d) -> torch.Tensor:
@@ -160,12 +171,15 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         with span("unet.resblock"):
-            h = self._half_step(x, self.norm_in, self.conv_in)
-            h = h + self.emb_proj(silu(emb))[:, None, None, :].to(h.dtype)
-            h = self._half_step(h, self.norm_out, self.conv_out)
-            if self.skip is not None:
-                x = self.skip(x)
-            return x + h.to(x.dtype)
+            return graphed.call(self, self._body, x, emb)
+
+    def _body(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = self._half_step(x, self.norm_in, self.conv_in)
+        h = h + self.emb_proj(silu(emb))[:, None, None, :].to(h.dtype)
+        h = self._half_step(h, self.norm_out, self.conv_out)
+        if self.skip is not None:
+            x = self.skip(x)
+        return x + h.to(x.dtype)
 
 
 class CrossAttention(nn.Module):
@@ -241,14 +255,17 @@ class SpatialTransformer(nn.Module):
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(
                 inner, context_dim or channels))
-        # param_tree(self), built at first use and dropped whenever the
-        # parameters may have been replaced (.to() and friends, loading)
+        # param_tree(self) and the CUDA graphs of forward's body, built at
+        # first use and dropped whenever the parameters may have been
+        # replaced (.to() and friends, loading)
         self._tree = None
+        self._graphs = graphed.GraphCache()
         self.register_load_state_dict_post_hook(self._drop_tree)
 
     @staticmethod
     def _drop_tree(module, _keys=None):
         module._tree = None
+        graphed.drop(module)
 
     def _apply(self, fn, *args, **kwargs):
         self._drop_tree(self)
@@ -262,26 +279,32 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context=None, kv=None) -> torch.Tensor:
         with span("unet.xformer"):
-            b, h, w, c = x.shape
-            comp = self.compute_dtype or self.proj_in.weight.dtype
-            inner = self.proj_in.weight.shape[0]
-            p = self.cast_params(comp)
-            tokens = x.reshape(b, h * w, c).to(comp)
-            ctx = None if context is None else context.to(comp)
-            kv0 = None if kv is None else kv.get("block_0")
-            tk = (kv0[0].shape[1] if kv0 is not None
-                  else (ctx.shape[1] if ctx is not None else h * w))
-            if (self.fused and self.depth == 1 and inner == c
-                    and (kv0 is not None or ctx is not None)
-                    and fused_transformer_qualifies(h * w, c, self.num_heads,
-                                                    tk)):
-                out = fused_transformer_block(tokens, p, self.num_heads, ctx,
-                                              kv0, 1e-6, self.use_flash)
-            else:
-                out = transformer_block_reference(
-                    tokens, p, self.num_heads, ctx, kv,
-                    use_flash=self.use_flash)
-            return out.reshape(b, h, w, c)
+            if kv is not None and all(kv.get(f"block_{i}") is not None
+                                      for i in range(self.depth)):
+                context = None  # every block has its K/V: no context read
+            return graphed.call(self, self._body, x, context, kv)
+
+    def _body(self, x: torch.Tensor, context, kv) -> torch.Tensor:
+        b, h, w, c = x.shape
+        comp = self.compute_dtype or self.proj_in.weight.dtype
+        inner = self.proj_in.weight.shape[0]
+        p = self.cast_params(comp)
+        tokens = x.reshape(b, h * w, c).to(comp)
+        ctx = None if context is None else context.to(comp)
+        kv0 = None if kv is None else kv.get("block_0")
+        tk = (kv0[0].shape[1] if kv0 is not None
+              else (ctx.shape[1] if ctx is not None else h * w))
+        if (self.fused and self.depth == 1 and inner == c
+                and (kv0 is not None or ctx is not None)
+                and fused_transformer_qualifies(h * w, c, self.num_heads,
+                                                tk)):
+            out = fused_transformer_block(tokens, p, self.num_heads, ctx,
+                                          kv0, 1e-6, self.use_flash)
+        else:
+            out = transformer_block_reference(
+                tokens, p, self.num_heads, ctx, kv,
+                use_flash=self.use_flash)
+        return out.reshape(b, h, w, c)
 
 
 def _cast_tree(tree, dtype):
@@ -383,6 +406,10 @@ class UNetModel(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 cross_kv: Optional[Dict] = None) -> torch.Tensor:
+        with graphed.unet_eval(x):
+            return self._body(x, timesteps, context, cross_kv)
+
+    def _body(self, x, timesteps, context, cross_kv) -> torch.Tensor:
         cfg = self.config
         comp = self.compute_dtype
         emb = self.time_embed_0(

@@ -44,7 +44,8 @@ Three choices differ from JAX's:
 
 - The replicated layers (ResBlocks, the time embedding, the convs) run
   once a group, on its first device, where GSPMD runs them on every
-  device of the group; they give the same values either way.
+  device of the group; they give the same values either way. They run
+  eagerly: the grid's U-Nets take no CUDA graph (`models/graphed.py`).
 - GEGLU: shard r takes value rows [r * 4C / tp, (r + 1) * 4C / tp) of
   `ff.proj_in` and the same rows of the gate half, so its GEGLU needs no
   exchange; JAX's contiguous split declines this (`tp.py:63-70`) because it
@@ -67,6 +68,7 @@ import torch
 from torch import nn
 
 from upgpt_torch.diffusion.latent_diffusion import LatentDiffusion
+from upgpt_torch.models import graphed
 from upgpt_torch.models.unet import (
     UNetModel, cross_attention_layers, layer_cross_kv,
 )
@@ -352,14 +354,15 @@ class TPUNet(nn.Module):
                 context: Optional[torch.Tensor] = None,
                 cross_kv: Optional[Dict] = None) -> torch.Tensor:
         outs = []
-        for g, rows in self.grid.row_slices(x.shape[0]):
-            lead = self.grid.groups[g][0]
-            out = self.replicas[self._replica_of[g]](
-                _to(x[rows], lead), _to(timesteps[rows], lead),
-                None if context is None else _to(context[rows], lead),
-                None if cross_kv is None else _map(cross_kv,
-                                                   lambda t: t[rows]))
-            outs.append(_to(out, x.device))
+        with graphed.eager():  # no CUDA graph around the grid's layers
+            for g, rows in self.grid.row_slices(x.shape[0]):
+                lead = self.grid.groups[g][0]
+                out = self.replicas[self._replica_of[g]](
+                    _to(x[rows], lead), _to(timesteps[rows], lead),
+                    None if context is None else _to(context[rows], lead),
+                    None if cross_kv is None else _map(cross_kv,
+                                                       lambda t: t[rows]))
+                outs.append(_to(out, x.device))
         return torch.cat(outs)
 
 

@@ -13,7 +13,7 @@ callbacks):
   exception and SIGUSR1 -> save (main.py:771-796);
 - image logs: short-DDIM EMA sample grids, the progressive denoise rows and
   the conditioning strips under logdir/images (ImageLogger,
-  main.py:302-450).
+  main.py:302-450), sampled eagerly (no CUDA graph, `models/graphed.py`).
 
 Checkpoints are one `torch.save` file each, `<logdir>/checkpoints/<name>`:
 step, the trainable parameters by name, the optimizer's state, the EMA
@@ -79,6 +79,7 @@ import torch
 
 from upgpt_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from upgpt_torch.diffusion.latent_diffusion import LatentDiffusion
+from upgpt_torch.models import graphed
 from upgpt_torch.parallel import mesh, multihost
 from upgpt_torch.training.lr import lambda_linear_schedule
 from upgpt_torch.training.train_state import (
@@ -534,7 +535,9 @@ class Trainer:
             self.model, num_steps=self.config.image_log_ddim_steps, eta=1.0)
         n_prog = self.config.image_log_progressive_frames
         prog = None
-        with self._ema_weights(state):
+        # eagerly: graphs captured here would hold their memory pools
+        # through the rest of the run
+        with self._ema_weights(state), graphed.eager():
             if n_prog > 0:
                 # the denoise rows (progressive_denoising, ddpm.py:1395-
                 # 1431): x0 predictions decoded at n_prog evenly spaced steps

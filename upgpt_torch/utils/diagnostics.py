@@ -19,7 +19,8 @@ CUDACallback, main.py:453-473,818):
   id from `begin` and a `batch` id from `end`. The buffer holds at
   most `limit` spans and counts the ones it drops.
 - `kernel_launches`: the kernel wrappers' launch counters, by kernel and
-  by the routes away from one.
+  by the routes away from one; `launch_state`, `launch_increase` and
+  `add_launches` let a CUDA graph's replay count what its capture did.
 - `device_memory_stats`: per-card memory from `torch.cuda.memory_stats`
   (the trainer's SIGUSR2 handler prints it).
 - `nan_guard`: raises on a non-finite floating tensor (the reference's
@@ -197,36 +198,80 @@ def drain() -> dict:
     return out
 
 
-def kernel_launches() -> Dict[str, int]:
-    """Each hand-written kernel's launches since its counter was last
-    reset (a process starts at 0), and the counted routes away from the
-    kernels: the flash kernels' FMA instantiations, the flash backward's
-    plain autograd, the GroupNorm and half-step gates' plain routes and
-    the half-step kernel's float32 instantiation."""
+def _launch_counters():
+    """(name, wrapper, attribute) of every count `kernel_launches` gives,
+    and the wrappers that also count their launches by shape
+    (`launches_by_shape`)."""
     from upgpt_torch.ops import flash_attention as fa
     from upgpt_torch.ops import fused_gn as fg
     from upgpt_torch.ops import fused_resblock as frb
     from upgpt_torch.ops import fused_transformer as ft
     from upgpt_torch.ops import selfattn_leg as sl
 
-    return {
-        "fused_transformer_block": ft.fused_transformer_block.launches,
-        "flash_attention": fa.flash_attention.launches,
-        "flash_backward_dq": fa.flash_backward_dq.launches,
-        "flash_backward_dkv": fa.flash_backward_dkv.launches,
-        "fused_group_norm": fg.fused_group_norm.launches,
-        "tiled_group_norm": fg.tiled_group_norm.launches,
-        "fused_resblock": frb.fused_gn_silu_conv.launches,
-        "selfattn_fullwidth": sl.selfattn_fullwidth.launches,
-        "selfattn_perhead": sl.selfattn_perhead.launches,
-        "flash_attention_fma": fa.flash_attention.fma_launches,
-        "flash_backward_dq_fma": fa.flash_backward_dq.fma_launches,
-        "flash_backward_dkv_fma": fa.flash_backward_dkv.fma_launches,
-        "flash_reference_backwards": fa.flash_attention.reference_backwards,
-        "fused_group_norm_plain_routes": fg.fused_group_norm.plain_routes,
-        "fused_resblock_plain_routes": frb.fused_gn_silu_conv.plain_routes,
-        "fused_resblock_fp32": frb.fused_gn_silu_conv.fp32_launches,
-    }
+    counts = (
+        ("fused_transformer_block", ft.fused_transformer_block, "launches"),
+        ("flash_attention", fa.flash_attention, "launches"),
+        ("flash_backward_dq", fa.flash_backward_dq, "launches"),
+        ("flash_backward_dkv", fa.flash_backward_dkv, "launches"),
+        ("fused_group_norm", fg.fused_group_norm, "launches"),
+        ("tiled_group_norm", fg.tiled_group_norm, "launches"),
+        ("fused_resblock", frb.fused_gn_silu_conv, "launches"),
+        ("selfattn_fullwidth", sl.selfattn_fullwidth, "launches"),
+        ("selfattn_perhead", sl.selfattn_perhead, "launches"),
+        ("flash_attention_fma", fa.flash_attention, "fma_launches"),
+        ("flash_backward_dq_fma", fa.flash_backward_dq, "fma_launches"),
+        ("flash_backward_dkv_fma", fa.flash_backward_dkv, "fma_launches"),
+        ("flash_reference_backwards", fa.flash_attention,
+         "reference_backwards"),
+        ("fused_group_norm_plain_routes", fg.fused_group_norm,
+         "plain_routes"),
+        ("fused_resblock_plain_routes", frb.fused_gn_silu_conv,
+         "plain_routes"),
+        ("fused_resblock_fp32", frb.fused_gn_silu_conv, "fp32_launches"),
+    )
+    return counts, (fg.fused_group_norm, fg.tiled_group_norm,
+                    frb.fused_gn_silu_conv)
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each hand-written kernel's launches since its counter was last
+    reset (a process starts at 0), and the counted routes away from the
+    kernels: the flash kernels' FMA instantiations, the flash backward's
+    plain autograd, the GroupNorm and half-step gates' plain routes and
+    the half-step kernel's float32 instantiation."""
+    counts, _ = _launch_counters()
+    return {name: getattr(fn, attr) for name, fn, attr in counts}
+
+
+def launch_state() -> Dict[tuple, int]:
+    """Every launch counter the kernel wrappers keep, as {(wrapper,
+    attribute, shape): count}: `kernel_launches`'s counts (shape None)
+    and the per-shape counts (attribute `launches_by_shape`)."""
+    counts, by_shape = _launch_counters()
+    state = {(fn, attr, None): getattr(fn, attr) for _, fn, attr in counts}
+    for fn in by_shape:
+        for shape, n in fn.launches_by_shape.items():
+            state[(fn, "launches_by_shape", shape)] = n
+    return state
+
+
+def launch_increase(before: Dict[tuple, int], after: Dict[tuple, int]
+                    ) -> tuple:
+    """The counters that rose from `before` to `after` (two
+    `launch_state`s), as ((wrapper, attribute, shape, increase), ...)."""
+    return tuple((*key, n - before.get(key, 0)) for key, n in after.items()
+                 if n != before.get(key, 0))
+
+
+def add_launches(increase) -> None:
+    """Add a `launch_increase` to the counters: what a CUDA graph replay
+    launches without running the wrappers that count."""
+    for fn, attr, shape, n in increase:
+        if shape is None:
+            setattr(fn, attr, getattr(fn, attr) + n)
+        else:
+            counts = getattr(fn, attr)
+            counts[shape] = counts.get(shape, 0) + n
 
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:
